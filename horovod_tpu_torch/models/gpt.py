@@ -1,0 +1,124 @@
+"""Decoder-only (GPT-2 style) causal language model in PyTorch.
+
+Port of ``horovod_tpu/models/gpt.py``.  The module computes at the precision
+of the flax model it mirrors, with every cast written out (no autocast):
+
+- parameters are fp32; each projection and embedding casts its parameters
+  and input to ``config.dtype`` (bf16 for ``GPT_SMALL``), as flax's
+  ``dtype=`` does, so the residual stream is in that dtype;
+- LayerNorm runs in fp32 (epsilon 1e-6, flax's default) and its output is
+  cast back to the compute dtype;
+- GELU is the tanh approximation (flax's ``nn.gelu``);
+- ``ln_f`` and ``lm_head`` run in fp32, so the logits are fp32.
+
+Attention is causal with ``scale = head_dim ** -0.5``, through the flash
+kernels (``config.use_flash``) or dense attention.  Parameter names follow
+the flax tree (``h.<i>.attn.qkv`` for ``h_<i>/attn/qkv``, ...), so
+``models.convert.gpt_params_from_jax`` maps one onto the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import dense_attention, flash_attention
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304          # GPT-2 vocab padded to a multiple of 128
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_seq_len: int = 1024
+    dtype: torch.dtype = torch.bfloat16
+    use_flash: bool = True           # the hand-written kernels on a card
+
+
+GPT_SMALL = GPTConfig()
+GPT_TINY = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                     num_heads=4, max_seq_len=256, use_flash=False,
+                     dtype=torch.float32)
+
+
+def _linear(x, layer: nn.Linear, dtype: torch.dtype):
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _layer_norm(x, ln: nn.LayerNorm, dtype: torch.dtype):
+    return ln(x.float()).to(dtype)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
+        self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        qkv = _linear(x, self.qkv, cfg.dtype).view(
+            b, s, 3, cfg.num_heads, self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        attend = flash_attention if cfg.use_flash else dense_attention
+        ctx = attend(q, k, v, causal=True)
+        return _linear(ctx.reshape(b, s, cfg.hidden_size), self.out,
+                       cfg.dtype)
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.attn = CausalSelfAttention(cfg)
+        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.mlp_in = nn.Linear(cfg.hidden_size, 4 * cfg.hidden_size)
+        self.mlp_out = nn.Linear(4 * cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        x = x + self.attn(_layer_norm(x, self.ln_1, dt))
+        m = _linear(_layer_norm(x, self.ln_2, dt), self.mlp_in, dt)
+        m = F.gelu(m, approximate="tanh")
+        return x + _linear(m, self.mlp_out, dt)
+
+
+class GPT(nn.Module):
+    """Causal LM: returns next-token logits ``[B, S, V]`` (fp32)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
+        self.h = nn.ModuleList(GPTBlock(cfg) for _ in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=LN_EPS)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+
+    def forward(self, input_ids):
+        dt = self.cfg.dtype
+        s = input_ids.shape[-1]
+        pos = torch.arange(s, device=input_ids.device)[None, :]
+        # Gather, then cast: the same values as flax's cast-then-gather.
+        x = (self.wte(input_ids).to(dt) + self.wpe(pos).to(dt))
+        for block in self.h:
+            x = block(x)
+        x = self.ln_f(x.float())
+        return self.lm_head(x)
+
+
+def lm_loss(logits, input_ids):
+    """Next-token cross entropy (shifted), mean over positions."""
+    return F.cross_entropy(logits[:, :-1].flatten(0, 1).float(),
+                           input_ids[:, 1:].flatten())
