@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
-   hand-written kernels from ``horovod_tpu_torch/csrc`` (nvcc, into
-   ``horovod_tpu_torch/_build/``).
+   hand-written kernels from ``horovod_tpu_torch/csrc`` (one nvcc per
+   source, started together, into ``horovod_tpu_torch/_build/``).
 2. Kernels: each flash kernel (K4 forward, K5 dQ, K6 dK/dV) against its
    plain PyTorch version, computed in fp32 from the same bf16 inputs, at the
    slice's shape (B 8, S 1024, H 12, D 64, causal; q, k and v are views of
@@ -23,6 +23,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    tokens with the loss averaged by ``hvd.allreduce``.  The kernels' launch
    counts are zeroed just before and read just after: each must rise by
    exactly 12 (one per layer) per step.
+5. Codec kernels: K1 (int8 codes), K2 (packed int4 codes) and K3 (decode)
+   through ``quantize``, ``dequantize`` and ``fake_quantize`` for int8,
+   int4 and int8g, held bitwise against the same functions composed from
+   the plain versions on the card, at the size of GPT-2 small's gradient
+   (163,109,376 fp32) and on an adversarial tensor; each kernel timed, and
+   K3 beside ``torch.mul(codes, scales)``, which must give its bits.
+6. World 2 on the one card: two ranks, both on ``cuda:0``.  Two ranks
+   first ask NCCL for a group on the one card; the world-2 ranks use NCCL
+   if it accepts, and ``HOROVOD_GPU_OPERATIONS=GLOO`` only if both are
+   refused (NCCL 2.28 refuses: "Duplicate GPU detected"): a gloo group,
+   tensors and kernels on the card.  (a) Collectives:
+   ``quantized_allreduce`` for each codec x {ring, bidi} x {Sum,
+   Average}, ``quantized_allgather`` and
+   ``quantized_broadcast`` on 2^24 + 37 fp32 per rank, each bitwise
+   identical on both ranks, bitwise equal to a CPU simulation of both ranks
+   (the same ring code in two threads, plain versions), and launching the
+   kernels exactly as often as its schedule implies.  (b) The slice's main
+   path: ``hvd.DistributedOptimizer(AdamW, device_compression="int8")``
+   training ``GPT(GPT_SMALL)`` for 3 steps, each rank on its own batch of
+   4 x 1024 tokens, with launch counts exact per step, parameters bitwise
+   identical across ranks, the error-feedback residual of three leaves
+   bitwise equal to the plain arithmetic on the CPU, and the device byte
+   counters equal to the ring's byte count.  Step times of two ranks
+   sharing one card are printed and are not a speed result.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +91,23 @@ KERNELS = {
                       "_mha_bwd_dkv_kernel"),
 }
 SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+CODEC_KERNELS = {
+    "quant_int8": ("horovod_tpu/ops/quantize.py:338", "_quant_kernel"),
+    "quant_int4": ("horovod_tpu/ops/quantize.py:350", "_quant_kernel_int4"),
+    "dequant": ("horovod_tpu/ops/quantize.py:360", "_dequant_kernel"),
+}
+CODEC_SOURCE = "horovod_tpu_torch/csrc/quantize.cu"
+_NO_LIBRARY = ("none: no one PyTorch call has the codec's NaN clamp and "
+               "all-zero/non-finite block gate")
+CODEC_LIBRARY = {"quant_int8": _NO_LIBRARY, "quant_int4": _NO_LIBRARY,
+                 "dequant": "torch.mul(codes, scales)"}
+CODECS = ("int8", "int4", "int8g")
+# fp32 elements of GPT_SMALL's gradient (untied lm_head): 637,146 blocks.
+GPT_SMALL_PARAMS = 163_109_376
+WORLD2_ELEMS = (1 << 24) + 37
+EF_STEPS = 3
+EF_LEAVES = 51  # GPT_SMALL's weights of >= 64 KiB: 48 block matrices,
+                # wte, wpe and lm_head
 
 
 def card_line() -> str:
@@ -354,6 +395,493 @@ def profile_step(step) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
+# ---------------------------------------------------------------------------
+# Codec kernels K1-K3.
+# ---------------------------------------------------------------------------
+
+def plain_quantize(qz, flat, codec):
+    """``qz.quantize`` composed from the kernels' plain versions."""
+    xb = qz._to_blocks(flat)
+    if codec == "int4":
+        scale, inv = qz._block_scales(xb, float(qz.WIRE_INT4_MAX))
+        return qz.quant_int4_reference(xb, inv), scale
+    if codec == "int8g":
+        sub, gscale, inv = qz._group_scales(xb)
+        return qz.quant_int8_reference(xb, inv), (sub, gscale)
+    scale, inv = qz._block_scales(xb)
+    return qz.quant_int8_reference(xb, inv), scale
+
+
+def plain_dequantize(qz, codes, scales, count, codec):
+    """``qz.dequantize`` composed from the kernels' plain versions."""
+    if codec == "int4":
+        codes = qz._unpack_int4(codes)
+    elif codec == "int8g":
+        scales = qz._effective_scales(*scales, codes.shape[0])
+    return qz.dequant_reference(codes, scales).reshape(-1)[:count]
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality (NaN bits count), shapes and dtypes included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over the elements finite in both (0.0 when none)."""
+    a, b = a.double(), b.double()
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return (a - b)[ok].abs().max().item() if ok.any() else 0.0
+
+
+def adversarial(numel: int, seed: int) -> torch.Tensor:
+    """Unit normals of a length whose last block is short (37), with every
+    special block of the codecs: all zeros, all NaN, a NaN in a finite
+    block, +-inf blocks, an inf in a finite block, subnormals (a whole block
+    and some beside normals), +-FLT_MAX, -0.0, and values at exactly k + 0.5
+    quantization steps for int8 (scale 1) and for int4 (scale 1)."""
+    import numpy as np
+
+    f32 = np.finfo(np.float32)
+    x = np.random.default_rng(seed).standard_normal(numel).astype(np.float32)
+    x[0:256] = 0.0
+    x[256:512] = np.nan
+    x[600] = np.nan
+    x[768:1024] = np.inf
+    x[1024:1280] = -np.inf
+    x[1300] = np.inf
+    x[1536:1792] *= 1e-40                      # a block of subnormals
+    x[1792:1802] = f32.smallest_subnormal * np.arange(1, 11)
+    x[2048], x[2049] = f32.max, -f32.max
+    x[2304:2560] = np.arange(256) % 20 - 10 + 0.5
+    x[2304] = 127.0
+    x[2560:2816] = -0.0
+    x[2816:3072] = np.arange(256) % 14 - 7 + 0.5
+    x[2816] = 7.0
+    return torch.from_numpy(x).cuda()
+
+
+def codec_phase(qz, seed):
+    """The public codec functions through the kernels, bitwise against the
+    same functions through the plain versions, at GPT_SMALL's gradient size
+    and on the adversarial tensor; then each kernel timed at that size."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    inputs = {
+        "gpt_small_grad": torch.randn(GPT_SMALL_PARAMS, generator=gen,
+                                      device="cuda"),
+        "adversarial": adversarial(256 * 1000 + 37, seed + 4),
+    }
+    errs = {name: 0.0 for name in CODEC_KERNELS}
+    checked = {}
+    for label, x in inputs.items():
+        n = x.numel()
+        for codec in CODECS:
+            kcodes, kscales = qz.quantize(x, codec)
+            pcodes, pscales = plain_quantize(qz, x, codec)
+            quant = "quant_int4" if codec == "int4" else "quant_int8"
+            kdeq = qz.dequantize(kcodes, kscales, n, codec)
+            pdeq = plain_dequantize(qz, pcodes, pscales, n, codec)
+            kfake = qz.fake_quantize(x, codec)
+            ks = kscales if codec == "int8g" else (kscales,)
+            ps = pscales if codec == "int8g" else (pscales,)
+            ok = {"codes": same_bits(kcodes, pcodes),
+                  "scales": all(same_bits(a, b) for a, b in zip(ks, ps)),
+                  "dequantize": same_bits(kdeq, pdeq),
+                  "fake_quantize": same_bits(kfake, pdeq)}
+            torch.cuda.synchronize()
+            checked[f"{label}/{codec}"] = ok
+            if not all(ok.values()):
+                raise AssertionError(f"codec kernels differ from their plain "
+                                     f"versions: {label} {codec} {ok}")
+            errs[quant] = max(errs[quant], max_abs_err(
+                kcodes.float(), pcodes.float()))
+            errs["dequant"] = max(errs["dequant"], max_abs_err(kdeq, pdeq))
+            del kcodes, pcodes, kdeq, pdeq, kfake
+    # Times at GPT_SMALL's gradient size, inputs as the int8 codec feeds
+    # them (int4's scales differ only in value).
+    x = inputs["gpt_small_grad"]
+    xb = qz._to_blocks(x)
+    scale, inv = qz._block_scales(xb)
+    codes = qz.quant_int8_cuda(xb, inv)
+    nb, n = xb.shape[0], x.numel()
+    per_block = 4 * nb                        # one fp32 inv or scale each
+    # K3 alone is one PyTorch call, int8 codes promoted to fp32 and
+    # multiplied by the broadcast scales; it must give the kernel's bits.
+    # K1 and K2 have none: no one call has the codec's NaN clamp and
+    # all-zero/non-finite block gate.
+    if not same_bits(torch.mul(codes, scale), qz.dequant_cuda(codes, scale)):
+        raise AssertionError("torch.mul(codes, scales) differs from K3")
+    work = {
+        "quant_int8": (lambda: qz.quant_int8_cuda(xb, inv),
+                       lambda: qz.quant_int8_reference(xb, inv), None,
+                       4 * n + per_block + n),
+        "quant_int4": (lambda: qz.quant_int4_cuda(xb, inv),
+                       lambda: qz.quant_int4_reference(xb, inv), None,
+                       4 * n + per_block + n // 2),
+        "dequant": (lambda: qz.dequant_cuda(codes, scale),
+                    lambda: qz.dequant_reference(codes, scale),
+                    lambda: torch.mul(codes, scale),
+                    n + per_block + 4 * n),
+    }
+    timing = {}
+    for name, (kernel, plain, library, nbytes) in work.items():
+        timing[name] = (cuda_ms(kernel), cuda_ms(plain, iters=5),
+                        (nbytes / PEAK_HBM_BYTES * 1e3, "bytes"),
+                        None if library is None else cuda_ms(library))
+    del inputs, x, xb, codes
+    torch.cuda.empty_cache()
+    return {"checked": checked, "max_abs_err": errs,
+            "elements": {"gpt_small_grad": GPT_SMALL_PARAMS,
+                         "adversarial": 256 * 1000 + 37}}, timing
+
+
+# ---------------------------------------------------------------------------
+# World 2 on one card.
+# ---------------------------------------------------------------------------
+
+class ThreadRing:
+    """The ring exchange of ``ops.collectives`` between threads of one
+    process: the CPU simulation of every rank of a world."""
+
+    def __init__(self, rank, size, box):
+        self.rank, self.size, self._box = rank, size, box
+
+    def exchange(self, tensors, dst, src):
+        cond, mail = self._box
+        with cond:
+            mail.setdefault((self.rank, dst), []).append(list(tensors))
+            cond.notify_all()
+            while not mail.get((src, self.rank)):
+                cond.wait()
+            return mail[(src, self.rank)].pop(0)
+
+
+def world2_input(seed, rank):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed + rank)
+                            .standard_normal(WORLD2_ELEMS, dtype=np.float32))
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+COLLECTIVE_CASES = ([("allreduce", c, s, o) for c in CODECS
+                     for s in ("ring", "bidi") for o in ("sum", "average")]
+                    + [("allgather", c, None, None) for c in CODECS]
+                    + [("broadcast", c, None, None) for c in CODECS])
+BROADCAST_ROOT = 1
+
+
+def expected_launches(kind, codec, sched, rank, world=2):
+    """Kernel launches one call makes on ``rank``: a ring allreduce encodes
+    world times (world-1 hops and the owned chunk) and decodes 2*world-1
+    times (world-1 hops and world gathered chunks); bidi runs two such
+    rings."""
+    if kind == "allreduce":
+        rings = 2 if sched == "bidi" else 1
+        quant, deq = rings * world, rings * (2 * world - 1)
+    elif kind == "allgather":
+        quant, deq = 1, world
+    else:
+        quant, deq = int(rank == BROADCAST_ROOT), 1
+    key = "quant_int4" if codec == "int4" else "quant_int8"
+    out = {"quant_int8": 0, "quant_int4": 0, "dequant": deq}
+    out[key] = quant
+    return out
+
+
+def simulate_collectives(seed):
+    """Digest of each case's result, from both ranks run as threads on the
+    CPU with the same ring code and the kernels' plain versions."""
+    import threading
+
+    from horovod_tpu_torch.ops import collectives as col
+    from horovod_tpu_torch.ops import quantize as qz
+
+    xs = [world2_input(seed, r) for r in range(2)]
+    out = {}
+    for kind, codec, sched, op in COLLECTIVE_CASES:
+        if kind == "allreduce":
+            box = (threading.Condition(), {})
+            res = [None, None]
+
+            def run(r):
+                res[r] = col._quantized_ring_allreduce_sum(
+                    ThreadRing(r, 2, box), xs[r], codec, sched)
+
+            threads = [threading.Thread(target=run, args=(r,))
+                       for r in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if op == "average":
+                res = [qz._div(a, 2) for a in res]
+            if not same_bits(res[0], res[1]):
+                raise AssertionError(f"simulated ranks differ: {codec} "
+                                     f"{sched} {op}")
+            result = res[0]
+        elif kind == "allgather":
+            result = torch.cat([qz.fake_quantize(x, codec) for x in xs])
+        else:
+            result = qz.fake_quantize(xs[BROADCAST_ROOT], codec)
+        out[f"{kind}/{codec}/{sched}/{op}"] = digest(result)
+    return out
+
+
+def ef_leaf_check(qz, grad, old, new):
+    """The residual error feedback stored, held bitwise against the plain
+    arithmetic on the CPU: (g + r) - fake_quantize(g + r)."""
+    g = grad.cpu()
+    corrected = g + (0.0 if old is None else old.cpu())
+    want = corrected - qz.fake_quantize(corrected, "int8")
+    return same_bits(new.cpu(), want)
+
+
+def world2_rank(rank, port, seed, gpu_operations, queue):
+    """One of two ranks sharing ``cuda:0``, its collectives run by
+    ``gpu_operations`` (NCCL or GLOO); puts its report on ``queue``."""
+    import traceback
+
+    os.environ.update(
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+        HOROVOD_GPU_OPERATIONS=gpu_operations)
+    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_DEVICE_SCHEDULE",
+                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(world2_work(rank, seed))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def world2_work(rank, seed):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantize as qz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cuda:0")
+    rep = {"rank": rank, "backend": hvd.backend(), "device": str(hvd.device())}
+    try:
+        # (a) The collectives, counts zeroed just before and read after.
+        x = world2_input(seed, rank).cuda()
+        cases, wall_ms = {}, {}
+        qz.reset_launch_counts()
+        for kind, codec, sched, op in COLLECTIVE_CASES:
+            before = dict(qz.LAUNCHES)
+            t0 = time.perf_counter()
+            if kind == "allreduce":
+                out = hvd.quantized_allreduce(
+                    x, op=hvd.Sum if op == "sum" else hvd.Average,
+                    codec=codec, schedule=sched)
+            elif kind == "allgather":
+                out = hvd.quantized_allgather(x, codec=codec)
+            else:
+                out = hvd.quantized_broadcast(x, BROADCAST_ROOT, codec=codec)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rose = {k: qz.LAUNCHES[k] - before[k] for k in qz.LAUNCHES}
+            want = expected_launches(kind, codec, sched, rank)
+            if rose != want:
+                raise AssertionError(f"{kind} {codec} {sched}: launches "
+                                     f"{rose}, expected {want}")
+            key = f"{kind}/{codec}/{sched}/{op}"
+            cases[key], wall_ms[key] = digest(out), ms
+            peers = hvd.allgather_object(cases[key])
+            if len(set(peers)) != 1:
+                raise AssertionError(f"{key}: ranks differ {peers}")
+        rep["collectives"] = {"digests": cases, "wall_ms": wall_ms,
+                              "launches": dict(qz.LAUNCHES)}
+        del x, out
+        torch.cuda.empty_cache()
+        rep["ef_trainer"] = ef_trainer(hvd, fa, qz, GPT, GPT_SMALL, lm_loss,
+                                       seed, rank)
+    finally:
+        hvd.shutdown()
+    return rep
+
+
+def ef_trainer(hvd, fa, qz, GPT, GPT_SMALL, lm_loss, seed, rank,
+               batch=4, seq=1024):
+    """The slice's main path: GPT-2 small through
+    DistributedOptimizer(AdamW, device_compression="int8") at world 2."""
+    dev = hvd.device()
+    torch.manual_seed(seed)
+    model = GPT(GPT_SMALL).to(dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), device_compression="int8")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10 + rank)
+    ids = torch.randint(0, GPT_SMALL.vocab_size, (batch, seq), generator=gen,
+                        device=dev)
+    named = dict(model.named_parameters())
+    eligible = [n for n, p in named.items()
+                if p.dtype == torch.float32 and p.numel() * 4 >= 1 << 16]
+    if len(eligible) != EF_LEAVES:
+        raise AssertionError(f"{len(eligible)} eligible leaves, expected "
+                             f"{EF_LEAVES}")
+    watch = ("wte.weight", "h.0.attn.qkv.weight", "lm_head.weight")
+    per_step = {"quant_int8": 3 * EF_LEAVES, "quant_int4": 0,
+                "dequant": 4 * EF_LEAVES, "flash_fwd": GPT_SMALL.num_layers,
+                "flash_bwd_dq": GPT_SMALL.num_layers,
+                "flash_bwd_dkv": GPT_SMALL.num_layers}
+    losses, step_ms, leaf_ok = [], [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qz.reset_launch_counts()
+    fa.reset_launch_counts()
+    qz.reset_device_byte_counters()
+    for step in range(EF_STEPS):
+        before = {**qz.LAUNCHES, **fa.LAUNCHES}
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lm_loss(model(ids), ids)
+        loss.backward()
+        last = step == EF_STEPS - 1
+        if last:  # error feedback's inputs, before synchronize() reduces
+            local = {n: named[n].grad.clone() for n in watch}
+            old = {n: opt.state[named[n]].get("ef_residual") for n in watch}
+            old = {n: None if r is None else r.clone()
+                   for n, r in old.items()}
+        opt.step()
+        losses.append(hvd.allreduce(loss.detach()).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        now = {**qz.LAUNCHES, **fa.LAUNCHES}
+        rose = {k: now[k] - before[k] for k in per_step}
+        if rose != per_step:
+            raise AssertionError(f"step {step}: launches {rose}, expected "
+                                 f"{per_step}")
+    launches = {**qz.LAUNCHES, **fa.LAUNCHES}
+    raw, encoded = qz.device_byte_counters()
+    want_bytes = [0, 0]
+    for n in eligible:
+        r, e = qz.ring_bytes(named[n].numel(), 2, "int8", "ring")
+        want_bytes[0] += EF_STEPS * r
+        want_bytes[1] += EF_STEPS * e
+    if [raw, encoded] != want_bytes:
+        raise AssertionError(f"device bytes {(raw, encoded)}, expected "
+                             f"{want_bytes}")
+    for n in watch:
+        leaf_ok[n] = ef_leaf_check(qz, local[n], old[n],
+                                   opt.state[named[n]]["ef_residual"])
+    if not all(leaf_ok.values()):
+        raise AssertionError(f"error-feedback residuals differ from the "
+                             f"plain arithmetic: {leaf_ok}")
+    params = digest(torch.cat([p.detach().reshape(-1)
+                               for p in model.parameters()]))
+    residuals = digest(torch.cat([opt.state[named[n]]["ef_residual"]
+                                  .reshape(-1) for n in eligible]))
+    peers = hvd.allgather_object((params, residuals))
+    if len({p for p, _ in peers}) != 1:
+        raise AssertionError("parameters differ across ranks after the "
+                             "steps")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "launches_per_step": per_step, "eligible_leaves": len(eligible),
+            "device_bytes": [raw, encoded],
+            "residual_leaves_checked": leaf_ok,
+            "params_identical_across_ranks": True,
+            "residuals_identical_across_ranks":
+                len({r for _, r in peers}) == 1,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def nccl_pair_rank(rank, port, queue):
+    """One of two ranks asking NCCL for a group on the same card; reports
+    NCCL's answer."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", rank=rank, world_size=2,
+                                init_method=f"tcp://127.0.0.1:{port}")
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)  # NCCL forms its communicator here
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        queue.put({"rank": rank, "accepted": True})
+    except Exception as e:  # the answer is the result
+        queue.put({"rank": rank, "accepted": False,
+                   "error": str(e).strip().splitlines()[-1]})
+
+
+def spawn_pair(target, args, timeout_s):
+    """Run ``target(rank, port, *args, queue)`` in two spawned processes;
+    returns their reports by rank.  Every process is joined or killed."""
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, *args, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        for _ in procs:
+            rep = results.get(timeout=timeout_s)
+            reports[rep["rank"]] = rep
+    except queue_mod.Empty:
+        raise AssertionError(f"{target.__name__}: a rank sent no report in "
+                             f"{timeout_s} s")
+    finally:
+        for p in procs:
+            p.join(60)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return reports, [p.exitcode for p in procs]
+
+
+def world2_phase(seed, gpu_operations):
+    """Both ranks in processes of their own on cuda:0, with the CPU
+    simulation run meanwhile (in a thread of this process: the ranks spend
+    most of their time waiting on each other).  Returns rank 0's report and
+    rank 1's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        simulated = pool.submit(simulate_collectives, seed)
+        reports, codes = spawn_pair(world2_rank, (seed, gpu_operations), 900)
+        sim = simulated.result()
+    for rep in reports.values():
+        if "error" in rep:
+            raise AssertionError(f"world-2 rank {rep['rank']} failed:\n"
+                                 f"{rep['error']}")
+    if codes != [0, 0]:
+        raise AssertionError(f"world-2 exit codes {codes}")
+    for key, want in sim.items():
+        got = reports[0]["collectives"]["digests"][key]
+        if got != want:
+            raise AssertionError(f"{key}: the card's result differs from the "
+                                 "CPU simulation")
+    return reports[0], reports[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -378,12 +906,19 @@ def main() -> int:
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch.ops import quantize as qz
+
     t0 = time.perf_counter()
-    _, report = _build.build("flash_attention")
+    sources = ("flash_attention", "quantize")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, at once
+        builds = dict(zip(sources, pool.map(_build.build, sources)))
     print(json.dumps({"phase": "build", "seconds":
                       round(time.perf_counter() - t0, 3)}), flush=True)
-    if report:
-        print(f"nvcc flash_attention.cu:\n{report.strip()}", flush=True)
+    for name, (_, report) in builds.items():
+        if report:
+            print(f"nvcc {name}.cu:\n{report.strip()}", flush=True)
 
     shapes = {"slice": ((8, 1024, 12, 64), True),
               "ragged": ((2, 1000, 4, 128), False)}
@@ -409,6 +944,17 @@ def main() -> int:
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "card": card}), flush=True)
 
+    codec, codec_timing = codec_phase(qz, args.seed)
+    print(json.dumps({"phase": "codec_kernels", **codec}), flush=True)
+    for name, (ms, plain_ms, (bound_ms, bound_by), lib_ms) \
+            in codec_timing.items():
+        print(json.dumps({"kernel": name, "elements": GPT_SMALL_PARAMS,
+                          "kernel_ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms,
+                          "library_call": CODEC_LIBRARY[name],
+                          "card": card}), flush=True)
+
     ref = reference_phase(args.seed)
     print(json.dumps({"phase": "reference", "flash_vs_dense": ref}),
           flush=True)
@@ -417,6 +963,32 @@ def main() -> int:
     print(json.dumps({"phase": "slice", "model": "GPT_SMALL",
                       "batch": 8, "seq": 1024, "card": card, **res}),
           flush=True)
+
+    torch.cuda.empty_cache()
+    nccl, _ = spawn_pair(nccl_pair_rank, (), 300)
+    # NCCL whenever it takes two ranks on one card; gloo on the card only
+    # when both ranks were refused.
+    gpu_operations = ("GLOO" if not any(a["accepted"] for a in nccl.values())
+                      else "NCCL")
+    print(json.dumps({"phase": "nccl_two_ranks_one_card",
+                      "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+                      "answers": [nccl[r] for r in sorted(nccl)],
+                      "world2_gpu_operations": gpu_operations}), flush=True)
+    rank0, rank1 = world2_phase(args.seed, gpu_operations)
+    for rep in (rank0, rank1):
+        print(json.dumps({"phase": "world2", "model": "GPT_SMALL",
+                          "batch_per_rank": 4, "seq": 1024,
+                          "note": "two ranks share one card: step times "
+                                  "are not a speed result",
+                          "card": card, **rep}), flush=True)
+    ef = rank0["ef_trainer"]
+    codec_launches = {"quant_int8": ef["launches"]["quant_int8"],
+                      "quant_int4": rank0["collectives"]["launches"][
+                          "quant_int4"],
+                      "dequant": ef["launches"]["dequant"]}
+    codec_path = {"quant_int8": "world-2 EF trainer",
+                  "quant_int4": "world-2 collectives (int4 cases)",
+                  "dequant": "world-2 EF trainer"}
 
     summary = []
     for name, (replaces, tpu_kernel) in KERNELS.items():
@@ -430,7 +1002,19 @@ def main() -> int:
                             for e in errors.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
-            "library_call": lib_call, "tpu_kernel": tpu_kernel})
+            "library_call": lib_call, "tpu_kernel": tpu_kernel,
+            "launch_path": "world-1 trainer",
+            "launches_world2_ef_trainer": ef["launches"][name]})
+    for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
+        ms, plain_ms, (bound_ms, bound_by), lib_ms = codec_timing[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": CODEC_SOURCE,
+            "replaces": replaces, "launches": codec_launches[name],
+            "launch_path": codec_path[name],
+            "max_abs_err": codec["max_abs_err"][name], "bitwise": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_call": CODEC_LIBRARY[name], "tpu_kernel": tpu_kernel})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,9 +4,10 @@ Reference: horovod/common/basics.py (init/shutdown/rank/size/local_rank/...)
 and ``horovod_tpu/basics.py``.  Where the JAX package starts its negotiated
 core and builds a device mesh, this module forms a ``torch.distributed``
 process group over the ranks: NCCL when the rank's device is a CUDA card,
-gloo when the caller asked for the CPU.  The group is formed at world size
-1 too, so the gradient allreduce one card runs is the same call that n
-cards run.
+gloo when the caller asked for the CPU, or for gloo on the card with
+``HOROVOD_GPU_OPERATIONS=GLOO`` (NCCL refuses two ranks of one group on one
+card).  The group is formed at world size 1 too, so the gradient allreduce
+one card runs is the same call that n cards run.
 """
 
 from __future__ import annotations
@@ -61,7 +62,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
     Rank, size and local rank come from ``HOROVOD_RANK``/``HOROVOD_SIZE``/
     ``HOROVOD_LOCAL_RANK`` (default: a world of one).  The device defaults
     to ``cuda:<local_rank>``; the CPU is used only when asked for with
-    ``device="cpu"``.  Ranks of a world larger than one meet at
+    ``device="cpu"``.  Collectives on the card run over NCCL unless
+    ``HOROVOD_GPU_OPERATIONS=GLOO`` asks for gloo.  Ranks of a world larger
+    than one meet at
     ``tcp://HOROVOD_GLOO_RENDEZVOUS_ADDR:HOROVOD_GLOO_RENDEZVOUS_PORT``;
     a collective waits ``HOROVOD_GLOO_TIMEOUT_SECONDS`` (600) for its peers.
     """
@@ -74,7 +77,8 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         raise RuntimeError(
             "torch.distributed is already initialized; horovod_tpu_torch "
             "forms its own process group in init()")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = ("nccl" if dev.type == "cuda" and cfg.gpu_operations == "NCCL"
+               else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=cfg.timeout_s)
@@ -140,5 +144,6 @@ def device() -> torch.device:
 
 
 def backend() -> str:
-    """``"nccl"`` on a card, ``"gloo"`` on the CPU."""
+    """``"nccl"`` on a card (``"gloo"`` under HOROVOD_GPU_OPERATIONS=GLOO),
+    ``"gloo"`` on the CPU."""
     return _get().backend

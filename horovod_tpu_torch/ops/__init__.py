@@ -1,4 +1,5 @@
 """Device collectives (``ops.collectives``) and the hand-written kernels of
-the port (``ops.flash_attention``, built by ``ops._build``)."""
+the port (``ops.flash_attention``, ``ops.quantize``, built by
+``ops._build``)."""
 
-from . import collectives, flash_attention  # noqa: F401
+from . import collectives, flash_attention, quantize  # noqa: F401

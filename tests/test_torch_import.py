@@ -38,7 +38,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and (m == "horovod_tpu" or m.startswith("horovod_tpu.")
                          or m.split(".")[0] in ("jax", "flax", "optax")))
-    print(len(names), leaked)
+    print(len(names), leaked, names)
 """)
 
 
@@ -50,9 +50,12 @@ def test_imports_with_jax_and_reference_blocked():
          _BLOCKED_IMPORT.replace("REPO_DIR", repr(str(REPO)))],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    count, leaked = out.stdout.split(" ", 1)
-    assert int(count) >= 15  # every module of the package was imported
-    assert leaked.strip() == "[]"
+    count, leaked, names = out.stdout.split(" ", 2)
+    assert int(count) >= 17  # every module of the package was imported
+    assert leaked == "[]"
+    for module in ("ops.quantize", "ops.collectives", "optimizer",
+                   "utils.env"):
+        assert f"'horovod_tpu_torch.{module}'" in names
 
 
 def _imports(path: Path):

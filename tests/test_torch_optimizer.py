@@ -268,7 +268,7 @@ def test_gather_and_broadcast_np2(ranks):
 
 @pytest.mark.parametrize("kwargs", [
     {"process_set": object()}, {"num_groups": 2},
-    {"shard_optimizer_states": True}, {"device_compression": "int8"}])
+    {"shard_optimizer_states": True}, {"groups": [[]]}])
 def test_later_slice_options_raise(kwargs):
     import horovod_tpu_torch as hvd
 
@@ -276,6 +276,63 @@ def test_later_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="later slice"):
         hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
                                  **kwargs)
+
+
+def test_device_compression_options(monkeypatch):
+    """The reference's rules for error feedback: an active codec refuses
+    wire compression, predivide and ops other than Average and Sum; an
+    explicit codec refuses accumulation, a codec from the environment
+    leaves an accumulating optimizer on the plain path; "none" overrides
+    the environment."""
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.delenv("HOROVOD_WIRE_COMPRESSION", raising=False)
+    model = _make_model(0)
+
+    def make(**kwargs):
+        return hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), **kwargs)
+
+    for kwargs in ({"device_compression": "int9"},
+                   {"device_compression": "int8",
+                    "compression": hvd.Compression.fp16},
+                   {"device_compression": "int4",
+                    "backward_passes_per_step": 2},
+                   {"device_compression": "int8g",
+                    "gradient_predivide_factor": 2.0},
+                   {"device_compression": "int8", "op": hvd.Min}):
+        with pytest.raises(ValueError):
+            make(**kwargs)
+    assert make()._ef_codec == "none"
+    assert make(device_compression="INT4")._ef_codec == "int4"
+    monkeypatch.setenv("HOROVOD_WIRE_COMPRESSION", "host=bf16,device=int8g")
+    assert make()._ef_codec == "int8g"
+    assert make(device_compression="none")._ef_codec == "none"
+    assert make(backward_passes_per_step=2)._ef_codec == "none"
+
+
+def test_world_one_error_feedback_is_the_plain_step():
+    """At world 1 no gradient is eligible for the quantized ring
+    (quantized_collective_eligible needs a ring): the step is the plain
+    one and no residual is kept."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        model, ref = _make_model(0), _make_model(0)
+        x = torch.randn(5, 4, generator=torch.Generator().manual_seed(1))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            device_compression="int8")
+        ref_opt = torch.optim.SGD(ref.parameters(), lr=0.1)
+        for o, m in ((opt, model), (ref_opt, ref)):
+            _loss(m, x).backward()
+            o.step()
+        for p, q in zip(model.parameters(), ref.parameters()):
+            assert torch.equal(p, q)
+            assert "ef_residual" not in opt.state[p]
+    finally:
+        hvd.shutdown()
 
 
 def test_predivide_needs_average():
