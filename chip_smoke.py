@@ -1,19 +1,27 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--stop-after kernels]
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
    hand-written kernels from ``horovod_tpu_torch/csrc`` (one nvcc per
-   source, started together, into ``horovod_tpu_torch/_build/``).
+   source, started together, into ``horovod_tpu_torch/_build/``); prints
+   nvcc's report and each flash kernel's registers and spill bytes.
 2. Kernels: each flash kernel (K4 forward, K5 dQ, K6 dK/dV) against its
    plain PyTorch version, computed in fp32 from the same bf16 inputs, at the
    slice's shape (B 8, S 1024, H 12, D 64, causal; q, k and v are views of
    one fused [B, S, 3, H, D] tensor, as the model's qkv projection gives
-   them) and at a ragged one (S 1000, D 128, non-causal, contiguous); times
-   the kernel, the plain version and, as a yardstick the port never calls,
-   PyTorch's SDPA.
+   them), at a ragged one (S 1000, D 128, non-causal, contiguous) and at a
+   ragged causal one (S 1000, D 64, fused views: the last tile of 128 rows
+   is cut short inside each batch).  At the slice's shape it times the
+   kernel, the plain version and, as yardsticks the port never calls,
+   PyTorch's SDPA forward and backward (dq, dk and dv in one call, beside
+   the port's whole backward: the delta pass, K5 and K6).  Every time is
+   device time: the profiler's sum over the kernels that one call launches
+   (``kernel_ms``, ``library_ms``), with the wall time by CUDA events beside
+   it (``*_wall_ms``), which for a short kernel is mostly the host's cost
+   of the call.  ``--stop-after kernels`` ends the run here.
 3. Reference: a smoke check of the whole model -- a 2-layer GPT at
    GPT-2-small width, flash path against the dense-attention path of the
    same model on the card (logits, loss, a gradient).
@@ -22,7 +30,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``hvd.DistributedOptimizer(AdamW)``, steps on one fixed batch of 8 x 1024
    tokens with the loss averaged by ``hvd.allreduce``.  The kernels' launch
    counts are zeroed just before and read just after: each must rise by
-   exactly 12 (one per layer) per step.
+   exactly 12 (one per layer) per step.  One more step is profiled: the
+   device time by category, and the flash kernels' share of it.
 5. Codec kernels: K1 (int8 codes), K2 (packed int4 codes) and K3 (decode)
    through ``quantize``, ``dequantize`` and ``fake_quantize`` for int8,
    int4 and int8g, held bitwise against the same functions composed from
@@ -83,6 +92,7 @@ TOL = {"out": 1e-2,     # bf16 output and P rounding
        "lse": 1e-4,     # absolute; fp32 on both sides, only summation order
        "grad": 1e-2}    # bf16 P/dS operands and bf16 outputs
 
+FLASH_CATEGORIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 KERNELS = {
     "flash_fwd": ("horovod_tpu/ops/flash_attention.py:74", "_mha_kernel"),
     "flash_bwd_dq": ("horovod_tpu/ops/flash_attention.py:170",
@@ -90,6 +100,8 @@ KERNELS = {
     "flash_bwd_dkv": ("horovod_tpu/ops/flash_attention.py:220",
                       "_mha_bwd_dkv_kernel"),
 }
+KERNEL_SYMBOL = {"flash_fwd": "fwd_kernel", "flash_bwd_dq": "bwd_dq_kernel",
+                 "flash_bwd_dkv": "bwd_dkv_kernel"}
 SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
 CODEC_KERNELS = {
     "quant_int8": ("horovod_tpu/ops/quantize.py:338", "_quant_kernel"),
@@ -119,7 +131,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events after warm-up."""
+    """Mean wall time of ``fn`` in ms by CUDA events after warm-up: the
+    device's time only when the host enqueues faster than the device runs
+    (a Python wrapper's own cost sets it for short kernels)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +145,125 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class ClockSampler:
+    """The SM clock and power draw, sampled by ``nvidia-smi -lms`` while the
+    block runs (the process is stopped on exit); ``summary()`` gives the
+    median and range of the samples taken."""
+
+    def __init__(self, period_ms: int = 10):
+        self.cmd = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                    "--format=csv,noheader,nounits", f"-lms={period_ms}"]
+        self.proc = None
+        self.lines = []
+
+    def __enter__(self):
+        import tempfile
+
+        self.out = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(self.cmd, stdout=self.out,
+                                     stderr=subprocess.DEVNULL, text=True)
+        deadline = time.perf_counter() + 5.0  # until the first sample
+        while self.out.tell() == 0 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.seek(0)
+        self.lines = self.out.read().splitlines()
+        self.out.close()
+        return False
+
+    def summary(self) -> dict:
+        clocks, watts = [], []
+        for line in self.lines:
+            try:
+                mhz, w = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            clocks.append(mhz)
+            watts.append(w)
+        if not clocks:
+            return {"sm_clock_mhz": "not measured"}
+        clocks.sort()
+        return {"sm_clock_mhz": clocks[len(clocks) // 2],
+                "sm_clock_mhz_range": [clocks[0], clocks[-1]],
+                "power_draw_w_max": max(watts), "samples": len(clocks)}
+
+
+def device_kernels_ms(prof) -> dict:
+    """Device time by kernel name (ms) from a torch.profiler trace: device
+    events, less the record_function ranges mirrored onto the device
+    timeline (they span kernels already counted)."""
+    per_kernel = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            ms = evt.time_range.elapsed_us() / 1e3
+            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + ms
+    return per_kernel
+
+
+def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """``device_ms``: the device time of the kernels one call of ``fn``
+    launches, summed from a torch.profiler trace over ``iters`` calls;
+    ``wall_ms``: the same calls by CUDA events (host cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = cuda_ms(fn, iters, warmup)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = device_kernels_ms(prof)
+    if not per_kernel:
+        raise AssertionError("torch.profiler recorded no device time")
+    return {"device_ms": sum(per_kernel.values()) / iters, "wall_ms": wall}
+
+
+def ptxas_summary(report: str) -> dict:
+    """Registers and spill bytes of each flash kernel from nvcc's
+    ``-Xptxas -v`` report, keyed ``name<template args>``, and whether
+    ptxas serialised its wgmma for want of registers (warning C7512)."""
+    import re
+
+    def kernel(symbol):
+        k = re.search(r"(fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)"
+                      r"ILi(\d+)E(?:Li(\d+)E)?", symbol)
+        return None if k is None else \
+            f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"\(C7512\).*for the function '([^']+)'", line)
+        if m and kernel(m.group(1)):
+            out.setdefault(kernel(m.group(1)), {})["wgmma_serialized"] = True
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel(m.group(1))
+            if name is not None:
+                out.setdefault(name, {}).setdefault("wgmma_serialized", False)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = \
+                int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def bound(b, s, h, d, causal, products, bytes_moved):
@@ -155,7 +288,7 @@ def tile_rel_err(got, ref) -> float:
     return torch.stack(worst).max().item()
 
 
-def kernel_phase(fa, shape, causal, seed, timed, fused_qkv):
+def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
     """Each kernel against its plain version on the same inputs.  With
     ``fused_qkv`` q, k and v are views of one [B, S, 3, H, D] tensor, as the
     model's qkv projection hands them to the kernels (seq stride 3*H*D)."""
@@ -212,45 +345,64 @@ def kernel_phase(fa, shape, causal, seed, timed, fused_qkv):
                     f"{name} {out_name} at {shape} causal={causal}: error "
                     f"{err} > {tol}")
     errs = {"max_abs_err": max_abs, "held_err": held}
-    if not timed:
-        return errs, None
+    if not timing:
+        return errs, None, None
     elt = b * s * h * d * 2  # one bf16 [B, S, H, D] tensor
     stat = b * h * s * 4     # one fp32 [B, H, S] row statistic
+    # (kernel, plain version, bound); each timed by device time (the
+    # profiler's sum over the kernels one call launches) beside its wall
+    # time by CUDA events.
+    with ClockSampler() as clocks:
+        kernels = {name: timed(fn) for name, fn in (
+            ("flash_fwd",
+             lambda: fa.flash_fwd_cuda(q, k, v, scale, causal)),
+            ("flash_bwd_dq",
+             lambda: fa.flash_bwd_dq_cuda(q, k, v, dout, r_lse, delta,
+                                          scale, causal)),
+            ("flash_bwd_dkv",
+             lambda: fa.flash_bwd_dkv_cuda(q, k, v, dout, r_lse, delta,
+                                           scale, causal)))}
     times = {
         "flash_fwd": (
-            cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, scale, causal)),
-            cuda_ms(lambda: fa.flash_fwd_reference(q32, k32, v32, scale,
-                                                   causal, blk), iters=5),
+            kernels["flash_fwd"],
+            timed(lambda: fa.flash_fwd_reference(q32, k32, v32, scale,
+                                                 causal, blk), iters=3),
             bound(b, s, h, d, causal, 2, 4 * elt + stat)),
         "flash_bwd_dq": (
-            cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, dout, r_lse, delta,
-                                                 scale, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dq_reference(
+            kernels["flash_bwd_dq"],
+            timed(lambda: fa.flash_bwd_dq_reference(
                 q32, k32, v32, do32, r_lse, delta, scale, causal, blk),
-                iters=5),
+                iters=3),
             bound(b, s, h, d, causal, 3, 5 * elt + 2 * stat)),
         "flash_bwd_dkv": (
-            cuda_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, dout, r_lse,
-                                                  delta, scale, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dkv_reference(
+            kernels["flash_bwd_dkv"],
+            timed(lambda: fa.flash_bwd_dkv_reference(
                 q32, k32, v32, do32, r_lse, delta, scale, causal, blk),
-                iters=5),
+                iters=3),
             bound(b, s, h, d, causal, 4, 6 * elt + 2 * stat)),
     }
-    # Yardstick only: PyTorch's SDPA on the same inputs ([B, H, S, D]).
+    # Yardsticks only, never called by the port: PyTorch's SDPA on the same
+    # inputs ([B, H, S, D] views), its forward, and its backward alone (the
+    # graph is kept) -- dq, dk and dv in one call, set beside the port's
+    # whole backward through autograd (the delta pass, K5 and K6).
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_fwd = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal))
     ql, kl, vl = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
     o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-    dot = dout.transpose(1, 2)
-    # Its backward alone (the graph is kept): dq, dk and dv in one call.
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        o, (ql, kl, vl), dot, retain_graph=True))
+    sdpa_bwd = timed(lambda: torch.autograd.grad(
+        o, (ql, kl, vl), dout.transpose(1, 2), retain_graph=True))
+    qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+    op = fa.flash_attention(qp, kp, vp, causal=causal, scale=scale)
+    port_bwd = timed(lambda: torch.autograd.grad(
+        op, (qp, kp, vp), dout, retain_graph=True))
     library = {"flash_fwd": (sdpa_fwd, "sdpa forward"),
                "flash_bwd_dq": (sdpa_bwd, "sdpa backward (dq, dk, dv)"),
                "flash_bwd_dkv": (sdpa_bwd, "sdpa backward (dq, dk, dv)")}
-    return errs, {n: (*times[n], *library[n]) for n in times}
+    backward = {"sdpa_backward": sdpa_bwd, "port_backward": port_bwd,
+                "port_backward_parts": "delta pass, K5, K6",
+                "kernel_timing_clocks": clocks.summary()}
+    return errs, {n: (*times[n], *library[n]) for n in times}, backward
 
 
 def reference_phase(seed):
@@ -368,14 +520,7 @@ def profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = {}
-    for evt in prof.events():
-        # Device events, less the record_function ranges mirrored onto the
-        # device timeline (they span kernels already counted).
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            ms = evt.time_range.elapsed_us() / 1e3
-            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + ms
+    per_kernel = device_kernels_ms(prof)
     if not per_kernel:
         return {"profiled_wall_ms": wall_ms, "device_ms": "not measured"}
     rules = (("flash_fwd", ("fwd_kernel",)), ("flash_bwd_dq", ("bwd_dq",)),
@@ -390,7 +535,9 @@ def profile_step(step) -> dict:
         cats[cat] = cats.get(cat, 0.0) + ms
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    flash = sum(cats.get(c, 0.0) for c in FLASH_CATEGORIES)
     return {"profiled_wall_ms": wall_ms, "device_ms": busy,
+            "flash_device_ms": flash, "flash_share": flash / busy,
             "by_category_ms": cats,
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
@@ -528,9 +675,9 @@ def codec_phase(qz, seed):
     }
     timing = {}
     for name, (kernel, plain, library, nbytes) in work.items():
-        timing[name] = (cuda_ms(kernel), cuda_ms(plain, iters=5),
+        timing[name] = (timed(kernel), timed(plain, iters=5),
                         (nbytes / PEAK_HBM_BYTES * 1e3, "bytes"),
-                        None if library is None else cuda_ms(library))
+                        None if library is None else timed(library))
     del inputs, x, xb, codes
     torch.cuda.empty_cache()
     return {"checked": checked, "max_abs_err": errs,
@@ -886,6 +1033,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, inputs and token ids")
+    ap.add_argument("--stop-after", choices=("kernels",),
+                    help="stop after the flash kernel phase (a short check "
+                         "of a changed kernel); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -919,39 +1069,55 @@ def main() -> int:
     for name, (_, report) in builds.items():
         if report:
             print(f"nvcc {name}.cu:\n{report.strip()}", flush=True)
+    ptxas = ptxas_summary(builds["flash_attention"][1])
+    print(json.dumps({"phase": "ptxas", "flash_attention": ptxas}),
+          flush=True)
 
-    shapes = {"slice": ((8, 1024, 12, 64), True),
-              "ragged": ((2, 1000, 4, 128), False)}
-    errors, timing = {}, None
-    for label, (shape, causal) in shapes.items():
-        errs, tm = kernel_phase(fa, shape, causal, args.seed,
-                                timed=label == "slice",
-                                fused_qkv=label == "slice")
+    # (shape [B, S, H, D], causal, q/k/v as views of one fused qkv tensor)
+    shapes = {"slice": ((8, 1024, 12, 64), True, True),
+              "ragged": ((2, 1000, 4, 128), False, False),
+              "ragged_causal": ((2, 1000, 12, 64), True, True)}
+    errors = {}
+    for label, (shape, causal, fused) in shapes.items():
+        errs, tm, bwd = kernel_phase(fa, shape, causal, args.seed,
+                                     timing=label == "slice",
+                                     fused_qkv=fused)
         errors[label] = errs
         if tm is not None:
-            timing = tm
+            timing, backward = tm, bwd
         print(json.dumps({"phase": "kernels", "shape": label,
                           "bshd": shape, "causal": causal,
-                          "fused_qkv_views": label == "slice", "tol": TOL,
+                          "fused_qkv_views": fused, "tol": TOL,
                           **errs}), flush=True)
-    for name, (ms, plain_ms, (bound_ms, bound_by), lib_ms, lib_call) \
+    for name, (ms, plain, (bound_ms, bound_by), lib, lib_call) \
             in timing.items():
         print(json.dumps({"kernel": name, "shape": "slice",
                           "max_abs_err": errors["slice"]["max_abs_err"][name],
                           "held_err": errors["slice"]["held_err"][name],
-                          "kernel_ms": ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms, "library_call": lib_call,
+                          "kernel_ms": ms["device_ms"],
+                          "kernel_wall_ms": ms["wall_ms"],
+                          "plain_ms": plain["device_ms"],
+                          "library_ms": lib["device_ms"],
+                          "library_wall_ms": lib["wall_ms"],
+                          "library_call": lib_call,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "card": card}), flush=True)
+    print(json.dumps({"phase": "backward", "shape": "slice", "card": card,
+                      **backward}), flush=True)
+    if args.stop_after == "kernels":
+        return 0
 
     codec, codec_timing = codec_phase(qz, args.seed)
     print(json.dumps({"phase": "codec_kernels", **codec}), flush=True)
-    for name, (ms, plain_ms, (bound_ms, bound_by), lib_ms) \
+    for name, (ms, plain, (bound_ms, bound_by), lib) \
             in codec_timing.items():
         print(json.dumps({"kernel": name, "elements": GPT_SMALL_PARAMS,
-                          "kernel_ms": ms, "plain_ms": plain_ms,
+                          "kernel_ms": ms["device_ms"],
+                          "kernel_wall_ms": ms["wall_ms"],
+                          "plain_ms": plain["device_ms"],
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": lib_ms,
+                          "library_ms": None if lib is None
+                          else lib["device_ms"],
                           "library_call": CODEC_LIBRARY[name],
                           "card": card}), flush=True)
 
@@ -992,7 +1158,7 @@ def main() -> int:
 
     summary = []
     for name, (replaces, tpu_kernel) in KERNELS.items():
-        ms, plain_ms, (bound_ms, bound_by), lib_ms, lib_call = timing[name]
+        ms, plain, (bound_ms, bound_by), lib, lib_call = timing[name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": res["launches"][name],
@@ -1000,20 +1166,25 @@ def main() -> int:
                                for e in errors.values()),
             "held_err": max(max(e["held_err"][name].values())
                             for e in errors.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
+            "ms": ms["device_ms"], "wall_ms": ms["wall_ms"],
+            "plain_ms": plain["device_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib["device_ms"],
             "library_call": lib_call, "tpu_kernel": tpu_kernel,
+            "ptxas": {k: v for k, v in ptxas.items()
+                      if k.startswith(KERNEL_SYMBOL[name])},
             "launch_path": "world-1 trainer",
             "launches_world2_ef_trainer": ef["launches"][name]})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
-        ms, plain_ms, (bound_ms, bound_by), lib_ms = codec_timing[name]
+        ms, plain, (bound_ms, bound_by), lib = codec_timing[name]
         summary.append({
             "name": name, "route": "cuda", "source": CODEC_SOURCE,
             "replaces": replaces, "launches": codec_launches[name],
             "launch_path": codec_path[name],
             "max_abs_err": codec["max_abs_err"][name], "bitwise": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
+            "ms": ms["device_ms"], "wall_ms": ms["wall_ms"],
+            "plain_ms": plain["device_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if lib is None else lib["device_ms"],
             "library_call": CODEC_LIBRARY[name], "tpu_kernel": tpu_kernel})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

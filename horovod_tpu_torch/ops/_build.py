@@ -8,9 +8,10 @@ shared library with a plain C interface, loaded with ``ctypes``:
 
 The build happens at first use, from the source in the checkout, into
 ``horovod_tpu_torch/_build/`` (ignored by git).  The file name carries a hash
-of the source and the flags, so an edited kernel is rebuilt and a built one
-is reused.  Nothing here runs at import: the CPU tests import every module,
-and there is no ``nvcc`` there.
+of the source, of every header in ``csrc/`` (``*.cuh``, which a source
+includes by name) and of the flags, so an edited kernel or header is
+rebuilt and a built one is reused.  Nothing here runs at import: the CPU
+tests import every module, and there is no ``nvcc`` there.
 """
 
 from __future__ import annotations
@@ -42,15 +43,24 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(src: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of a kernel source, every header beside it (``*.cuh``, by name
+    and content, so that an edited, added or removed header changes it)
+    and the flags."""
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the
     library's path and nvcc's report (registers, shared memory, spills;
     empty when the library was reused).  Raises with nvcc's output on
     failure."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    target = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
     if target.exists():
         return target, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

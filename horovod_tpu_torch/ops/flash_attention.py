@@ -14,11 +14,13 @@ kernels:
 
 Dispatch is by where the tensors lie.  A CUDA tensor launches the kernel,
 or raises if the kernel does not take its dtype (bf16 only), head_dim (64
-or 128) or layout (last dim contiguous, other strides multiples of 8
-elements, 16-byte aligned); nothing catches a failed build or launch.  A
-CPU tensor takes the plain version, which recomputes each tile's arithmetic
-as the Pallas body does: online softmax over kv tiles for the forward, P
-rebuilt from lse for the backward.  ``LAUNCHES`` counts kernel launches.
+or 128), layout (last dim contiguous, other strides multiples of 8
+elements, 16-byte aligned: what TMA reads in place) or, for K4 and K6, its
+scale (positive); nothing catches a failed build or launch.  K4 and K6 need
+``sm_90a``: they load tiles by TMA and multiply on wgmma.  A CPU tensor
+takes the plain version, which recomputes each tile's arithmetic as the
+Pallas body does: online softmax over kv tiles for the forward, P rebuilt
+from lse for the backward.  ``LAUNCHES`` counts kernel launches.
 
 The differentiable core is a ``torch.autograd.Function`` returning
 ``(out, lse)``.  Its backward carries the ``dlse`` fold of the JAX custom
@@ -188,6 +190,14 @@ def _check_kernel_input(name: str, x: torch.Tensor, like: torch.Tensor):
             "and 16-byte alignment")
 
 
+def _check_scale(sm_scale: float) -> None:
+    # The kernels take the row max of the raw scores and fold the scale into
+    # the exponent, which is right only for a positive scale.
+    if not sm_scale > 0:
+        raise ValueError(f"flash kernel takes a positive scale, got "
+                         f"{sm_scale}")
+
+
 def _strides(*tensors) -> ctypes.Array:
     vals = []
     for x in tensors:
@@ -210,6 +220,7 @@ def flash_fwd_cuda(q, k, v, sm_scale: float, causal: bool):
     """K4 on the card: out ``[B, S, H, D]`` bf16, lse ``[B, H, S]`` fp32."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_kernel_input(name, x, q)
+    _check_scale(sm_scale)
     b, s, h, d = q.shape
     lib = _kernels()
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -258,6 +269,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale: float,
     """K6 on the card: dk, dv ``[B, S, H, D]`` bf16."""
     for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
         _check_kernel_input(name, x, q)
+    _check_scale(sm_scale)
     _check_stats(lse, delta, q)
     b, s, h, d = q.shape
     lib = _kernels()
@@ -334,7 +346,7 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
                              block_q: int = 128, block_k: int = 128):
     """Attention over ``[B, S, H, D]`` returning ``(out, lse)``, lse shaped
     ``[B, H, S]`` fp32.  ``block_q``/``block_k`` tile the plain version
-    (the CPU path); the kernels use their own 64-row tiles."""
+    (the CPU path); the kernels use their own tiles (csrc)."""
     s, d = q.shape[1], q.shape[-1]
     sm_scale = d ** -0.5 if scale is None else scale
     block_q, block_k = min(block_q, s), min(block_k, s)

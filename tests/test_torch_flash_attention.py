@@ -110,13 +110,19 @@ def test_plain_version_streams_tiles():
         torch.testing.assert_close(lse, ref_lse, rtol=FWD_TOL, atol=FWD_TOL)
 
 
-@pytest.mark.parametrize("case", ["fp32", "head_dim", "layout"])
+@pytest.mark.parametrize("case", ["fp32", "head_dim", "layout", "scale"])
 def test_kernel_wrapper_raises_on_what_it_does_not_take(case):
-    """The CUDA wrappers check dtype, head_dim and layout before anything
-    is built or launched, and raise: there is no fallback."""
+    """The CUDA wrappers check dtype, head_dim, layout and scale before
+    anything is built or launched, and raise: there is no fallback."""
     shape = (1, 16, 2, 64)
     q = torch.zeros(shape, dtype=torch.bfloat16)
-    if case == "fp32":
+    scale = 0.125
+    if case == "scale":
+        # K4 and K6 fold the scale into the exponent after the row max.
+        scale, err = -0.125, ValueError
+        with pytest.raises(err):
+            tfa.flash_bwd_dkv_cuda(q, q, q, q, None, None, scale, True)
+    elif case == "fp32":
         q, err = q.float(), TypeError
     elif case == "head_dim":
         q, err = torch.zeros((1, 16, 2, 32), dtype=torch.bfloat16), ValueError
@@ -125,7 +131,7 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take(case):
                              dtype=torch.bfloat16).transpose(-1, -2), \
             ValueError
     with pytest.raises(err):
-        tfa.flash_fwd_cuda(q, q, q, 0.125, True)
+        tfa.flash_fwd_cuda(q, q, q, scale, True)
     assert tfa._lib is None  # nothing was built
 
 
