@@ -17,11 +17,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    is cut short inside each batch).  At the slice's shape it times the
    kernel, the plain version and, as yardsticks the port never calls,
    PyTorch's SDPA forward and backward (dq, dk and dv in one call, beside
-   the port's whole backward: the delta pass, K5 and K6).  Every time is
-   device time: the profiler's sum over the kernels that one call launches
-   (``kernel_ms``, ``library_ms``), with the wall time by CUDA events beside
-   it (``*_wall_ms``), which for a short kernel is mostly the host's cost
-   of the call.  ``--stop-after kernels`` ends the run here.
+   the port's whole backward: K5 with its delta, and K6).  K5 also
+   computes the backward's delta = rowsum(dO * O) - dlse, held against the
+   plain version's with dlse and without, and K6 is held on the delta K5
+   wrote.  Every time is device time: over the kernels that one call
+   launches, each one's mean from a profiler trace times its launches a
+   call (``kernel_ms``, ``library_ms``), with the wall time by CUDA events
+   beside it (``*_wall_ms``), which for a short kernel is mostly the
+   host's cost of the call.  ``--stop-after kernels`` ends the run here.
 3. Reference: a smoke check of the whole model -- a 2-layer GPT at
    GPT-2-small width, flash path against the dense-attention path of the
    same model on the card (logits, loss, a gradient).
@@ -86,10 +89,13 @@ PEAK_HBM_BYTES = 3.35e12
 # error on every row exceeds.  The kernels round P and dS to bf16 before
 # their second product and store bf16 outputs (2^-9 relative each); the
 # plain version keeps fp32.  On an H100 these errors measured 2.3e-3 (out)
-# and 2.4e-3 to 2.9e-3 (dq, dk, dv) at both shapes, lse 1e-6.
+# and 2.4e-3 to 2.9e-3 (dq, dk, dv) at both shapes, lse 1e-6.  delta is
+# a sum of D exact fp32 products of bf16 values on both sides, only in
+# another order: it is held by max |kernel - plain| / max |plain|.
 TILE = 64
 TOL = {"out": 1e-2,     # bf16 output and P rounding
        "lse": 1e-4,     # absolute; fp32 on both sides, only summation order
+       "delta": 1e-5,   # max-abs-relative; fp32 sums in another order
        "grad": 1e-2}    # bf16 P/dS operands and bf16 outputs
 
 FLASH_CATEGORIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -198,23 +204,40 @@ class ClockSampler:
                 "power_draw_w_max": max(watts), "samples": len(clocks)}
 
 
-def device_kernels_ms(prof) -> dict:
-    """Device time by kernel name (ms) from a torch.profiler trace: device
-    events, less the record_function ranges mirrored onto the device
+def device_kernels(prof) -> dict:
+    """(device ms, event count) by kernel name from a torch.profiler trace:
+    device events, less the record_function ranges mirrored onto the device
     timeline (they span kernels already counted)."""
     per_kernel = {}
     for evt in prof.events():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
-            ms = evt.time_range.elapsed_us() / 1e3
-            per_kernel[evt.name] = per_kernel.get(evt.name, 0.0) + ms
+            ms, n = per_kernel.get(evt.name, (0.0, 0))
+            per_kernel[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3,
+                                    n + 1)
     return per_kernel
+
+
+def per_call_ms(per_kernel: dict, iters: int):
+    """Device ms of one call, from the (ms, count) by kernel name of
+    ``iters`` calls, and the number of events the trace lost.  A kernel
+    that one call launches c times shows c * iters times unless the
+    profiler dropped some of its events (it did, in one run on the card
+    machine, and the sum fell 17% short), so each kernel counts as its mean
+    time times round(count / iters)."""
+    ms, lost = 0.0, 0
+    for total, n in per_kernel.values():
+        per_call = max(1, round(n / iters))
+        ms += total / n * per_call
+        lost += abs(per_call * iters - n)
+    return ms, lost
 
 
 def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
     """``device_ms``: the device time of the kernels one call of ``fn``
-    launches, summed from a torch.profiler trace over ``iters`` calls;
-    ``wall_ms``: the same calls by CUDA events (host cost included)."""
+    launches, from a torch.profiler trace of ``iters`` calls (``per_call_ms``,
+    with the events it lost as ``events_lost``); ``wall_ms``: the same calls
+    by CUDA events (host cost included)."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = cuda_ms(fn, iters, warmup)
@@ -223,10 +246,11 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    per_kernel = device_kernels_ms(prof)
+    per_kernel = device_kernels(prof)
     if not per_kernel:
         raise AssertionError("torch.profiler recorded no device time")
-    return {"device_ms": sum(per_kernel.values()) / iters, "wall_ms": wall}
+    ms, lost = per_call_ms(per_kernel, iters)
+    return {"device_ms": ms, "wall_ms": wall, "events_lost": lost}
 
 
 def ptxas_summary(report: str) -> dict:
@@ -312,24 +336,30 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
     # Forward.
     out, lse = fa.flash_fwd_cuda(q, k, v, scale, causal)
     r_out, r_lse = fa.flash_fwd_reference(q32, k32, v32, scale, causal, blk)
-    # Backward on shared inputs: lse from the plain forward, delta with an
-    # lse cotangent folded in (the dlse path of the autograd function).
-    dlse = 0.1 * randn(b, h, s)
-    delta = ((do32 * r_out).sum(-1).permute(0, 2, 1) - dlse).contiguous()
+    # Backward on shared inputs: K4's bf16 out (which K5 reads for delta)
+    # and lse from the plain forward, with an lse cotangent (the dlse path
+    # of the autograd function, last, so that K6 is held on the delta K5
+    # wrote with dlse folded in) and without one (the path GPT takes).
     r_lse = r_lse.contiguous()
-    dq = fa.flash_bwd_dq_cuda(q, k, v, dout, r_lse, delta, scale, causal)
+    dq_pairs, deltas = {}, {}
+    for case, dlse in (("no_dlse", None), ("dlse", 0.1 * randn(b, h, s))):
+        dq, delta = fa.flash_bwd_dq_cuda(q, k, v, dout, out, r_lse, dlse,
+                                         scale, causal)
+        r_dq, r_delta = fa.flash_bwd_dq_reference(
+            q32, k32, v32, do32, out, r_lse, dlse, scale, causal, blk)
+        dq_pairs[f"dq_{case}"] = (dq, r_dq)
+        deltas[f"delta_{case}"] = (delta, r_delta)
     dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, dout, r_lse, delta, scale,
                                    causal)
-    r_dq = fa.flash_bwd_dq_reference(q32, k32, v32, do32, r_lse, delta,
-                                     scale, causal, blk)
     r_dk, r_dv = fa.flash_bwd_dkv_reference(q32, k32, v32, do32, r_lse,
-                                            delta, scale, causal, blk)
+                                            r_delta, scale, causal, blk)
     torch.cuda.synchronize()
     pairs = {"flash_fwd": {"out": (out, r_out)},
-             "flash_bwd_dq": {"dq": (dq, r_dq)},
+             "flash_bwd_dq": dq_pairs,
              "flash_bwd_dkv": {"dk": (dk, r_dk), "dv": (dv, r_dv)}}
     # held: the error each limit in TOL applies to (tile-relative; lse max
-    # abs); max_abs: the largest absolute difference, for the record.
+    # abs; delta max abs over the largest plain value); max_abs: the largest
+    # absolute difference, for the record.
     max_abs, held = {}, {}
     for name, outs in pairs.items():
         max_abs[name] = {o: (g.float() - r).abs().max().item()
@@ -337,9 +367,13 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
         held[name] = {o: tile_rel_err(g, r) for o, (g, r) in outs.items()}
     max_abs["flash_fwd"]["lse"] = held["flash_fwd"]["lse"] = \
         (lse - r_lse).abs().max().item()
+    for o, (g, r) in deltas.items():
+        max_abs["flash_bwd_dq"][o] = (g - r).abs().max().item()
+        held["flash_bwd_dq"][o] = max_abs["flash_bwd_dq"][o] / \
+            r.abs().max().item()
     for name, per in held.items():
         for out_name, err in per.items():
-            tol = TOL.get(out_name, TOL["grad"])
+            tol = TOL.get(out_name.split("_")[0], TOL["grad"])
             if not err <= tol:  # also catches NaN
                 raise AssertionError(
                     f"{name} {out_name} at {shape} causal={causal}: error "
@@ -357,7 +391,7 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
             ("flash_fwd",
              lambda: fa.flash_fwd_cuda(q, k, v, scale, causal)),
             ("flash_bwd_dq",
-             lambda: fa.flash_bwd_dq_cuda(q, k, v, dout, r_lse, delta,
+             lambda: fa.flash_bwd_dq_cuda(q, k, v, dout, out, r_lse, dlse,
                                           scale, causal)),
             ("flash_bwd_dkv",
              lambda: fa.flash_bwd_dkv_cuda(q, k, v, dout, r_lse, delta,
@@ -371,9 +405,11 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
         "flash_bwd_dq": (
             kernels["flash_bwd_dq"],
             timed(lambda: fa.flash_bwd_dq_reference(
-                q32, k32, v32, do32, r_lse, delta, scale, causal, blk),
+                q32, k32, v32, do32, out, r_lse, dlse, scale, causal, blk),
                 iters=3),
-            bound(b, s, h, d, causal, 3, 5 * elt + 2 * stat)),
+            # q, k, v, dO and O read, dq written; lse and dlse read, delta
+            # written.
+            bound(b, s, h, d, causal, 3, 6 * elt + 3 * stat)),
         "flash_bwd_dkv": (
             kernels["flash_bwd_dkv"],
             timed(lambda: fa.flash_bwd_dkv_reference(
@@ -384,7 +420,7 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
     # Yardsticks only, never called by the port: PyTorch's SDPA on the same
     # inputs ([B, H, S, D] views), its forward, and its backward alone (the
     # graph is kept) -- dq, dk and dv in one call, set beside the port's
-    # whole backward through autograd (the delta pass, K5 and K6).
+    # whole backward through autograd (K5 with its delta, and K6).
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_fwd = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal))
@@ -400,7 +436,7 @@ def kernel_phase(fa, shape, causal, seed, timing, fused_qkv):
                "flash_bwd_dq": (sdpa_bwd, "sdpa backward (dq, dk, dv)"),
                "flash_bwd_dkv": (sdpa_bwd, "sdpa backward (dq, dk, dv)")}
     backward = {"sdpa_backward": sdpa_bwd, "port_backward": port_bwd,
-                "port_backward_parts": "delta pass, K5, K6",
+                "port_backward_parts": "K5 (with delta), K6",
                 "kernel_timing_clocks": clocks.summary()}
     return errs, {n: (*times[n], *library[n]) for n in times}, backward
 
@@ -520,7 +556,7 @@ def profile_step(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel = device_kernels_ms(prof)
+    per_kernel = {n: ms for n, (ms, _) in device_kernels(prof).items()}
     if not per_kernel:
         return {"profiled_wall_ms": wall_ms, "device_ms": "not measured"}
     rules = (("flash_fwd", ("fwd_kernel",)), ("flash_bwd_dq", ("bwd_dq",)),
@@ -1101,6 +1137,9 @@ def main() -> int:
                           "library_wall_ms": lib["wall_ms"],
                           "library_call": lib_call,
                           "bound_ms": bound_ms, "bound_by": bound_by,
+                          "events_lost": [ms["events_lost"],
+                                          plain["events_lost"],
+                                          lib["events_lost"]],
                           "card": card}), flush=True)
     print(json.dumps({"phase": "backward", "shape": "slice", "card": card,
                       **backward}), flush=True)

@@ -36,15 +36,16 @@
 //    (a view of the fused qkv projection costs no copy); outputs are
 //    contiguous [B, S, H, D].
 //
-// K4 and K6 are Hopper kernels (sm90.cuh): tiles arrive by TMA through a
+// All three are Hopper kernels (sm90.cuh): tiles arrive by TMA through a
 // two-stage ring of mbarriers, issued by one thread two tiles ahead, and a
 // warpgroup of 64 rows runs the products on wgmma (scores with both
 // operands in shared memory, the second product with P or dS from
 // registers and the shared tile read transposed through the descriptor).
 // Tensor maps are rank 4 over (D, H, S, B) with the view's own strides, so
 // TMA zero-fills rows past S inside each batch, and K4 stores its output
-// by TMA, which leaves rows past S unwritten.  K5 is still the first
-// design: mma.sync m16n8k16, 64-row tiles, plain 16-byte loads.
+// by TMA, which leaves rows past S unwritten.  K5 also computes the
+// backward's row statistic delta = rowsum(dO o O) - dlse from one more
+// tile before its key loop, and writes it for K6, which runs after it.
 //
 // Every entry point returns cudaGetLastError() (0 on success) and launches on
 // the stream it is given.
@@ -59,14 +60,10 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 64;  // rows of every K5 tile: 16 per warp
-constexpr int kPad = 8;    // bf16 of padding per shared-memory row (bank spread)
 
-// K4 and K6: one warpgroup a block, owning 64 rows (query rows in K4, keys
-// in K6), thread 0 also issuing the loads.  Blocks this small let three
-// share an SM at head_dim 64, and their independent progress is what
+// One warpgroup a block, owning 64 rows (query rows in K4 and K5, keys in
+// K6), thread 0 also issuing the loads.  Blocks this small let three (K5:
+// four) share an SM at head_dim 64, and their independent progress is what
 // overlaps one block's softmax with another's products; two warpgroups in
 // one block ran in step and were slower.  There is no producer warp: a
 // wgmma kernel's block is counted in whole warpgroups, and ptxas (CUDA
@@ -84,113 +81,26 @@ struct Params {
   const bf16* k;
   const bf16* v;
   const bf16* dout;
-  bf16* out;
+  bf16* out;           // written by K4, read by K5
   bf16* dq;
   bf16* dk;
   bf16* dv;
   float* lse;          // [B*H, S]
-  const float* delta;  // [B*H, S]
+  float* delta;        // [B*H, S], written by K5, read by K6
+  const float* dlse;   // [B*H, S], or null: the lse cotangent K5 folds in
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long do_sb, do_ss, do_sh;
+  long long o_sb, o_ss, o_sh;  // out as K5 reads it
   int B, H, S;
   float scale;
   int causal;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 that are not neighbours in memory, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  const uint32_t a = *reinterpret_cast<const unsigned short*>(lo);
-  const uint32_t b = *reinterpret_cast<const unsigned short*>(hi);
-  return a | (b << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b on the tensor cores: A 16x16 row-major, B 16x8 column-major,
-// C 16x8 fp32.  Fragment layout (lane = 4*g + t):
-//   a[0]: A[g][2t..2t+1]    a[1]: A[g+8][2t..2t+1]
-//   a[2]: A[g][2t+8..2t+9]  a[3]: A[g+8][2t+8..2t+9]
-//   b0:   B[2t..2t+1][g]    b1:   B[2t+8..2t+9][g]
-//   c[0..1]: C[g][2t..2t+1] c[2..3]: C[g+8][2t..2t+1]
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment: rows r0..r0+15, columns k0..k0+15 of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int ld, int r0, int k0, int lane) {
-  const bf16* p = s + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment with B[k][n] = T[n0 + n][k0 + k] (T row-major): the product
-// with T transposed, e.g. Q K^T.
-__device__ __forceinline__ void load_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* s, int ld, int n0, int k0,
-                                        int lane) {
-  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragment with B[k][n] = T[k0 + k][n0 + n] (T row-major), e.g. P V.
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* s, int ld, int k0, int n0,
-                                       int lane) {
-  const bf16* p = s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  b0 = pack2(p, p + ld);
-  b1 = pack2(p + 8 * ld, p + 9 * ld);
-}
-
-// Rows row0..row0+63 of one head ([S, D] at `g` with row stride `ss`) into
-// shared memory, zero past S.  16 bytes per thread per step.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long ss, int row0, int S) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) val = *reinterpret_cast<const uint4*>(g + row * ss + ch * 8);
-    *reinterpret_cast<uint4*>(s + r * (D + kPad) + ch * 8) = val;
-  }
-}
-
-// Rows r (accumulator element e < 2) and r + 8 (e >= 2) of a warp's
-// fragments, as (row, column) pairs of its C fragments, stored as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* g, long long ss,
-                                           const float (&acc)[D / 8][4],
-                                           int row, int S, int lane,
-                                           float mul_lo, float mul_hi) {
-  const int col = 2 * (lane & 3);
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    if (row < S)
-      *reinterpret_cast<__nv_bfloat162*>(g + row * ss + dt * 8 + col) =
-          __floats2bfloat162_rn(acc[dt][0] * mul_lo, acc[dt][1] * mul_lo);
-    if (row + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(g + (row + 8) * ss + dt * 8 + col) =
-          __floats2bfloat162_rn(acc[dt][2] * mul_hi, acc[dt][3] * mul_hi);
-  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -205,12 +115,11 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // Rows `row` and `row + 8` of a consumer warp's wgmma accumulators (D / 64
-// m64n64 blocks), scaled and stored as bf16; nothing past S.
+// m64n64 blocks), stored as bf16; nothing past S.
 template <int D>
 __device__ __forceinline__ void store_wg_rows(bf16* g, long long ss,
                                               const float (&acc)[D / 64][32],
-                                              int row, int S, int lane,
-                                              float mul_lo, float mul_hi) {
+                                              int row, int S, int lane) {
   const int col = 2 * (lane & 3);
 #pragma unroll
   for (int nb = 0; nb < D / 64; ++nb)
@@ -219,12 +128,10 @@ __device__ __forceinline__ void store_wg_rows(bf16* g, long long ss,
       const int c = nb * 64 + j * 8 + col;
       if (row < S)
         *reinterpret_cast<__nv_bfloat162*>(g + row * ss + c) =
-            __floats2bfloat162_rn(acc[nb][4 * j] * mul_lo,
-                                  acc[nb][4 * j + 1] * mul_lo);
+            __floats2bfloat162_rn(acc[nb][4 * j], acc[nb][4 * j + 1]);
       if (row + 8 < S)
         *reinterpret_cast<__nv_bfloat162*>(g + (row + 8) * ss + c) =
-            __floats2bfloat162_rn(acc[nb][4 * j + 2] * mul_hi,
-                                  acc[nb][4 * j + 3] * mul_hi);
+            __floats2bfloat162_rn(acc[nb][4 * j + 2], acc[nb][4 * j + 3]);
     }
 }
 
@@ -485,98 +392,6 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 1)
   }
 }
 
-// K5: one block per (q tile, b*h), looping over kv tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = D + kPad;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + kRows * LD;
-  bf16* sK = sDO + kRows * LD;
-  bf16* sV = sK + kRows * LD;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = lane & 3;
-  const int n_tiles = (p.S + kRows - 1) / kRows;
-  const int m_tile = p.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int m0 = m_tile * kRows;
-  const bf16* k = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* v = p.v + b * p.v_sb + h * p.v_sh;
-  const int row_lo = m0 + warp * 16 + (lane >> 2);
-  const int row_hi = row_lo + 8;
-  const int rows[2] = {row_lo, row_hi};
-
-  load_tile<D>(sQ, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, m0, p.S);
-  load_tile<D>(sDO, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, m0, p.S);
-  float lse[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < p.S;
-    lse[i] = in ? p.lse[(long long)bh * p.S + rows[i]] : 0.f;
-    delta[i] = in ? p.delta[(long long)bh * p.S + rows[i]] : 0.f;
-  }
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], sQ, LD, warp * 16, kk * 16, lane);
-    load_a(dof[kk], sDO, LD, warp * 16, kk * 16, lane);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int kv_end = p.causal ? min(p.S, m0 + kRows) : p.S;
-  for (int n0 = 0; n0 < kv_end; n0 += kRows) {
-    __syncthreads();
-    load_tile<D>(sK, k, p.k_ss, n0, p.S);
-    load_tile<D>(sV, v, p.v_ss, n0, p.S);
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kRows / 16; ++kc) {  // 16 keys at a time
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          uint32_t b0, b1;
-          load_bt(b0, b1, sK, LD, kc * 16 + jj * 8, kk * 16, lane);
-          mma(s[jj], qf[kk], b0, b1);
-          load_bt(b0, b1, sV, LD, kc * 16 + jj * 8, kk * 16, lane);
-          mma(dp[jj], dof[kk], b0, b1);
-        }
-      // dS = P o (dP - delta) * scale, with P = exp(S*scale - lse).
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n0 + kc * 16 + jj * 8 + 2 * t + (e & 1);
-          const int row = rows[e >> 1];
-          const bool live = p.causal ? col <= row : col < p.S;
-          const float pr =
-              live ? __expf(s[jj][e] * p.scale - lse[e >> 1]) : 0.f;
-          s[jj][e] = pr * (dp[jj][e] - delta[e >> 1]) * p.scale;
-        }
-      const uint32_t a[4] = {pack_f32(s[0][0], s[0][1]), pack_f32(s[0][2], s[0][3]),
-                             pack_f32(s[1][0], s[1][1]), pack_f32(s[1][2], s[1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b(b0, b1, sK, LD, kc * 16, dt * 8, lane);
-        mma(acc[dt], a, b0, b1);
-      }
-    }
-  }
-  const long long o_ss = (long long)p.H * D;
-  bf16* dq = p.dq + (long long)b * p.S * o_ss + (long long)h * D;
-  store_rows<D>(dq, o_ss, acc, row_lo, p.S, lane, 1.f, 1.f);
-}
-
-
 // The product of a block's 64-row tile with a BQ-row tile, S^T-style:
 // s = A B^T over D, both K-major in shared memory (issue only).
 template <int D, int BQ>
@@ -632,6 +447,200 @@ __device__ __forceinline__ void probs_t(float (&s)[BQ / 2], const float* L,
       s[4 * j + e] = pr;
     }
   }
+}
+
+// P = 2^(S scale log2(e) - lse log2(e)) for a warpgroup's 64 query rows by
+// the 64 keys from n0 (one FFMA and one ex2 an element), zero where masked:
+// keys past S and, when causal, keys after the query.  nl holds
+// -lse log2(e) of the thread's two rows.
+template <bool kMasked>
+__device__ __forceinline__ void probs(float (&s)[32], const float (&nl)[2],
+                                      float sl2, int n0, int row_lo, int t,
+                                      int S, int causal) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = ex2(fmaf(s[4 * j + e], sl2, nl[e >> 1]));
+      if (kMasked) {
+        const int col = n0 + j * 8 + 2 * t + (e & 1);
+        const int row = row_lo + 8 * (e >> 1);
+        if (causal ? col > row : col >= S) pr = 0.f;
+      }
+      s[4 * j + e] = pr;
+    }
+}
+
+// K5: one block per (64-query tile, b*h), looping over 64-key tiles.
+// S = Q K^T and dP = dO V^T run on wgmma with both operands in shared
+// memory (dP's product still running while P is formed), dS = P o (dP -
+// delta) scale stays in registers, and dQ += dS K takes dS as A fragments
+// and the same K tile read MN-major: K4's P V with K in V's place.  Before
+// the key loop the block computes its rows' delta = rowsum(dO o O) - dlse
+// from one more TMA tile (O), keeps it in registers and writes it to
+// [B*H, S] for K6.  Shared memory: Q and dO (loaded once), then two stages
+// of K and two of V, each stage with its own full barrier (K and V apart,
+// so that S starts before V lands); O lands in V's second stage, whose
+// tile-1 load waits until delta is in.  Thread 0 issues the loads of tile
+// it + 2 into the stages of tile it once __syncthreads shows them free.
+// At head_dim 64 four blocks share an SM (at most 128 registers a thread,
+// 49 KB of shared memory each), one more than with O in a tile of its
+// own, which on an H100 SXM was the faster of the two (PERF.md).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 4 : 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tout, Params p) {
+  constexpr int kBoxes = D / 64;
+  constexpr int kTile = kBoxes * kRowBox;  // 64 rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sQ = align1024(smem_raw);
+  unsigned char* sDO = sQ + kTile;
+  unsigned char* sK = sDO + kTile;     // [2][kTile]
+  unsigned char* sV = sK + 2 * kTile;  // [2][kTile]
+  unsigned char* sO = sV + kTile;      // V's second stage until delta is in
+  __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2];
+
+  const int n_tiles = (p.S + kWgRows - 1) / kWgRows;
+  const int m_tile = p.causal ? n_tiles - 1 - blockIdx.x : blockIdx.x;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int m0 = m_tile * kWgRows;
+  const int kv_end = p.causal ? min(p.S, m0 + kWgRows) : p.S;
+  const int n_kv = (kv_end + kWgRows - 1) / kWgRows;
+  const bool loader = threadIdx.x == 0;
+
+  auto load = [&](const CUtensorMap* map, uint64_t* bar, unsigned char* dst,
+                  int row0) {
+    for (int x = 0; x < kBoxes; ++x)
+      sm90::tma_load_4d(dst + x * kRowBox, map, bar, x * 64, h, row0, b);
+  };
+  auto load_k = [&](int it) {
+    const int st = it & 1;
+    sm90::mbar_arrive_expect_tx(&k_full[st], kTile);
+    load(&tk, &k_full[st], sK + st * kTile, it * kWgRows);
+  };
+  auto load_v = [&](int it) {
+    const int st = it & 1;
+    sm90::mbar_arrive_expect_tx(&v_full[st], kTile);
+    load(&tv, &v_full[st], sV + st * kTile, it * kWgRows);
+  };
+  if (loader) {
+    sm90::mbar_init(&q_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      sm90::mbar_init(&k_full[st], 1);
+      sm90::mbar_init(&v_full[st], 1);
+    }
+    sm90::mbar_fence_init();
+    sm90::mbar_arrive_expect_tx(&q_full, 3 * kTile);
+    load(&tq, &q_full, sQ, m0);
+    load(&tdo, &q_full, sDO, m0);
+    load(&tout, &q_full, sO, m0);
+    load_k(0);
+    load_v(0);
+    if (n_kv > 1) load_k(1);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
+  const int r = 16 * warp + (lane >> 2);  // rows r and r + 8 of the tile
+  const int row_lo = m0 + r;
+  const float sl2 = p.scale * kLog2e;
+  const long long stat = (long long)bh * p.S;
+  float nl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    nl[i] = row_lo + 8 * i < p.S ? -p.lse[stat + row_lo + 8 * i] * kLog2e
+                                 : 0.f;
+
+  // delta of rows r and r + 8: each thread takes the column pairs of its
+  // accumulator fragments (8 j + 2 t, in the 128-byte swizzle), fp32
+  // products of the bf16 values, then the row's four threads add up.
+  // Rows past S are zeros in both tiles, so their delta is 0.
+  sm90::mbar_wait(&q_full, 0);
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off = x * kRowBox + (r + 8 * i) * 128 +
+                        ((j ^ (r & 7)) << 4) + 4 * t;
+        const float2 g = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sDO + off));
+        const float2 o = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sO + off));
+        delta[i] = fmaf(g.y, o.y, fmaf(g.x, o.x, delta[i]));
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+    const int row = row_lo + 8 * i;
+    if (row < p.S) {
+      if (p.dlse != nullptr) delta[i] -= p.dlse[stat + row];
+      if (t == 0) p.delta[stat + row] = delta[i];
+    }
+  }
+  __syncthreads();  // O is read: its stage takes tile 1's V
+  if (loader && n_kv > 1) load_v(1);
+
+  float dq[kBoxes][32];
+#pragma unroll
+  for (int x = 0; x < kBoxes; ++x)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[x][e] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it & 1;
+    const uint32_t ph = (it >> 1) & 1;
+    const int n0 = it * kWgRows;
+    const unsigned char* k_t = sK + st * kTile;
+    float s[32], dp[32];
+    sm90::mbar_wait(&k_full[st], ph);
+    sm90::wgmma_fence();
+    rows_by_tile<D, 64>(s, sQ, k_t);  // S = Q K^T
+    sm90::wgmma_commit();
+    sm90::mbar_wait(&v_full[st], ph);
+    rows_by_tile<D, 64>(dp, sDO, sV + st * kTile);  // dP = dO V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(s);
+    if (n0 + kWgRows > p.S || (p.causal && n0 + kWgRows - 1 > m0))
+      probs<true>(s, nl, sl2, n0, row_lo, t, p.S, p.causal);
+    else
+      probs<false>(s, nl, sl2, n0, row_lo, t, p.S, p.causal);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    // dS = P o (dP - delta) * scale, rounded to bf16 (the TPU kernel's
+    // ds.astype), then dQ += dS K.
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      dp[e] = s[e] * (dp[e] - delta[(e >> 1) & 1]) * p.scale;
+    uint32_t da[4][4];
+    to_a_frags<4>(da, dp);
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) sm90::fence_regs(dq[x]);
+    sm90::wgmma_fence();
+    frags_by_tile<D, 64>(dq, da, k_t);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) sm90::fence_regs(dq[x]);
+    sm90::fence_regs(da);
+    __syncthreads();  // K and V of tile it are free
+    if (loader && it + 2 < n_kv) {
+      load_k(it + 2);
+      load_v(it + 2);
+    }
+  }
+
+  const long long o_ss = (long long)p.H * D;
+  store_wg_rows<D>(p.dq + (long long)b * p.S * o_ss + (long long)h * D, o_ss,
+                   dq, row_lo, p.S, lane);
 }
 
 // K6: one block per (64-key tile, b*h), looping over BQ-query tiles.
@@ -784,8 +793,8 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 3 : 1)
 
   const long long o_ss = (long long)p.H * D;
   const long long off = (long long)b * p.S * o_ss + (long long)h * D;
-  store_wg_rows<D>(p.dk + off, o_ss, dk, key_lo, p.S, lane, 1.f, 1.f);
-  store_wg_rows<D>(p.dv + off, o_ss, dv, key_lo, p.S, lane, 1.f, 1.f);
+  store_wg_rows<D>(p.dk + off, o_ss, dk, key_lo, p.S, lane);
+  store_wg_rows<D>(p.dv + off, o_ss, dv, key_lo, p.S, lane);
 }
 
 // The block's K6 query tile: 64 rows at head_dim 64; 32 at head_dim 128,
@@ -803,29 +812,32 @@ constexpr size_t dkv_smem() {
          4 * dkv_rows<D>() * sizeof(float);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int n_blocks, const Params& p, size_t smem,
-           void* stream) {
-  if (p.B * p.H > 65535 || p.S <= 0) return (int)cudaErrorInvalidValue;
+template <int D>
+constexpr size_t dq_smem() { return 1024 + 6 * (D / 64) * kRowBox; }
+
+// Launches `kernel` on a (64-row tile, b*h) grid, one warpgroup a block,
+// with `smem` bytes of dynamic shared memory, passing it `maps` and `p`.
+template <typename... KernelArgs, typename... Maps>
+int launch(void (*kernel)(KernelArgs...), const Params& p, size_t smem,
+           void* stream, const Maps&... maps) {
+  if (p.B * p.H > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_blocks, p.B * p.H), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(p);
+  const int n = (p.S + kWgRows - 1) / kWgRows;
+  kernel<<<dim3(n, p.B * p.H), kWgThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(maps..., p);
   return (int)cudaGetLastError();
 }
-
-size_t tile_bytes(int D) { return (size_t)kRows * (D + kPad) * sizeof(bf16); }
 
 // The tensor map of one input, `rows` sequence positions a box.
 bool map_of(CUtensorMap* map, const bf16* x, long long sb, long long ss,
             long long sh, const Params& p, int D, int rows) {
-  return sm90::bshd_map(map, x, p.B, p.S, p.H, D, sb, ss, sh, rows);
+  return p.S > 0 && sm90::bshd_map(map, x, p.B, p.S, p.H, D, sb, ss, sh, rows);
 }
 
 template <int D>
 int launch_fwd(const Params& p, void* stream) {
-  if (p.B * p.H > 65535 || p.S <= 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tout;
   const long long o_ss = (long long)p.H * D;  // out is contiguous
   if (!map_of(&tq, p.q, p.q_sb, p.q_ss, p.q_sh, p, D, kWgRows) ||
@@ -833,19 +845,24 @@ int launch_fwd(const Params& p, void* stream) {
       !map_of(&tv, p.v, p.v_sb, p.v_ss, p.v_sh, p, D, kKvRows) ||
       !map_of(&tout, p.out, p.S * o_ss, o_ss, D, p, D, kWgRows))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n = (p.S + kWgRows - 1) / kWgRows;
-  fwd_kernel<D><<<dim3(n, p.B * p.H), kWgThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, tout, p);
-  return (int)cudaGetLastError();
+  return launch(fwd_kernel<D>, p, fwd_smem<D>(), stream, tq, tk, tv, tout);
+}
+
+template <int D>
+int launch_dq(const Params& p, void* stream) {
+  CUtensorMap tq, tk, tv, tdo, tout;
+  if (!map_of(&tq, p.q, p.q_sb, p.q_ss, p.q_sh, p, D, kWgRows) ||
+      !map_of(&tk, p.k, p.k_sb, p.k_ss, p.k_sh, p, D, kWgRows) ||
+      !map_of(&tv, p.v, p.v_sb, p.v_ss, p.v_sh, p, D, kWgRows) ||
+      !map_of(&tdo, p.dout, p.do_sb, p.do_ss, p.do_sh, p, D, kWgRows) ||
+      !map_of(&tout, p.out, p.o_sb, p.o_ss, p.o_sh, p, D, kWgRows))
+    return (int)cudaErrorInvalidValue;
+  return launch(bwd_dq_kernel<D>, p, dq_smem<D>(), stream, tq, tk, tv, tdo,
+                tout);
 }
 
 template <int D>
 int launch_dkv(const Params& p, void* stream) {
-  if (p.B * p.H > 65535 || p.S <= 0) return (int)cudaErrorInvalidValue;
   constexpr int BQ = dkv_rows<D>();
   CUtensorMap tq, tk, tv, tdo;
   if (!map_of(&tq, p.q, p.q_sb, p.q_ss, p.q_sh, p, D, BQ) ||
@@ -853,16 +870,8 @@ int launch_dkv(const Params& p, void* stream) {
       !map_of(&tv, p.v, p.v_sb, p.v_ss, p.v_sh, p, D, kWgRows) ||
       !map_of(&tdo, p.dout, p.do_sb, p.do_ss, p.do_sh, p, D, BQ))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = dkv_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel<D, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n = (p.S + kWgRows - 1) / kWgRows;
-  bwd_dkv_kernel<D, BQ><<<dim3(n, p.B * p.H), kWgThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(tq, tk, tv,
-                                                               tdo, p);
-  return (int)cudaGetLastError();
+  return launch(bwd_dkv_kernel<D, BQ>, p, dkv_smem<D>(), stream, tq, tk, tv,
+                tdo);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -876,6 +885,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
   p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
+  p.o_sb = strides[12]; p.o_ss = strides[13]; p.o_sh = strides[14];
   p.B = B; p.H = H; p.S = S;
   p.scale = scale;
   p.causal = causal;
@@ -884,8 +894,9 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// strides: 12 int64, (batch, seq, head) element strides of q, k, v and dout
-// (dout's are unused by the forward).  Outputs are contiguous [B, S, H, D].
+// strides: 15 int64, (batch, seq, head) element strides of q, k, v, dout
+// and out (dout's are read by the backward only, out's by K5 only).
+// Outputs are contiguous [B, S, H, D]; lse, dlse and delta are [B*H, S].
 // A layout the driver refuses to map for TMA returns cudaErrorInvalidValue.
 extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const long long* strides,
@@ -899,19 +910,23 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// K5: dq, and delta = rowsum(dout o out) - dlse (dlse may be null) into
+// `delta` for K6.
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq,
+                                const void* dout, const void* out,
+                                const void* lse, const void* dlse,
+                                void* delta, void* dq,
                                 const long long* strides, int B, int H, int S,
                                 int D, float scale, int causal, void* stream) {
   Params p = make_params(q, k, v, strides, B, H, S, scale, causal);
   p.dout = static_cast<const bf16*>(dout);
+  p.out = const_cast<bf16*>(static_cast<const bf16*>(out));
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
-  p.delta = static_cast<const float*>(delta);
+  p.dlse = static_cast<const float*>(dlse);
+  p.delta = static_cast<float*>(delta);
   p.dq = static_cast<bf16*>(dq);
-  const int n = (S + kRows - 1) / kRows;
-  if (D == 64) return launch(bwd_dq_kernel<64>, n, p, 4 * tile_bytes(64), stream);
-  if (D == 128) return launch(bwd_dq_kernel<128>, n, p, 4 * tile_bytes(128), stream);
+  if (D == 64) return launch_dq<64>(p, stream);
+  if (D == 128) return launch_dq<128>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -924,7 +939,7 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   Params p = make_params(q, k, v, strides, B, H, S, scale, causal);
   p.dout = static_cast<const bf16*>(dout);
   p.lse = const_cast<float*>(static_cast<const float*>(lse));
-  p.delta = static_cast<const float*>(delta);
+  p.delta = const_cast<float*>(static_cast<const float*>(delta));
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
   if (D == 64) return launch_dkv<64>(p, stream);

@@ -16,17 +16,17 @@ Dispatch is by where the tensors lie.  A CUDA tensor launches the kernel,
 or raises if the kernel does not take its dtype (bf16 only), head_dim (64
 or 128), layout (last dim contiguous, other strides multiples of 8
 elements, 16-byte aligned: what TMA reads in place) or, for K4 and K6, its
-scale (positive); nothing catches a failed build or launch.  K4 and K6 need
-``sm_90a``: they load tiles by TMA and multiply on wgmma.  A CPU tensor
+scale (positive); nothing catches a failed build or launch.  The kernels
+need ``sm_90a``: they load tiles by TMA and multiply on wgmma.  A CPU tensor
 takes the plain version, which recomputes each tile's arithmetic as the
 Pallas body does: online softmax over kv tiles for the forward, P rebuilt
 from lse for the backward.  ``LAUNCHES`` counts kernel launches.
 
 The differentiable core is a ``torch.autograd.Function`` returning
 ``(out, lse)``.  Its backward carries the ``dlse`` fold of the JAX custom
-VJP: ``delta = rowsum(dO * O) - dlse``, computed in torch outside the
-kernels, so a loss that uses lse (ring attention's merge) differentiates
-through the same kernels.
+VJP: ``delta = rowsum(dO * O) - dlse``, which K5 computes before its key
+loop and hands to K6 (the plain K5 likewise returns it), so a loss that
+uses lse (ring attention's merge) differentiates through the same kernels.
 """
 
 from __future__ import annotations
@@ -92,13 +92,20 @@ def flash_fwd_reference(q, k, v, sm_scale: float, causal: bool,
     return out, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_bwd_dq_reference(q, k, v, dout, lse, delta, sm_scale: float,
+def flash_bwd_dq_reference(q, k, v, dout, out, lse, dlse, sm_scale: float,
                            causal: bool, block_k: int = 128):
-    """K5's arithmetic: dQ accumulates ``dS K`` over kv tiles, with
-    ``P = exp(S * scale - lse)`` and ``dS = P * (dP - delta) * scale``."""
+    """K5's arithmetic.  First the row statistic of the backward,
+    ``delta = rowsum(dO * O) - dlse`` (``dlse`` may be None), then dQ
+    accumulates ``dS K`` over kv tiles, with ``P = exp(S * scale - lse)`` and
+    ``dS = P * (dP - delta) * scale``.  Returns dq ``[B, S, H, D]`` and delta
+    ``[B, H, S]`` fp32 (contiguous), which K6 takes."""
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
     qb, kb, vb, dob = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)
     s = qb.shape[2]
-    lse_c, delta_c = lse.float()[..., None], delta.float()[..., None]
+    lse_c, delta_c = lse.float()[..., None], delta[..., None]
     dq = torch.zeros_like(qb)
     for k0 in range(0, s, block_k):
         k1 = min(k0 + block_k, s)
@@ -111,7 +118,7 @@ def flash_bwd_dq_reference(q, k, v, dout, lse, delta, sm_scale: float,
         dp = dob @ vt.transpose(-1, -2)
         ds = p * (dp - delta_c) * sm_scale
         dq = dq + ds.to(k.dtype).float() @ kt
-    return dq.to(q.dtype).permute(0, 2, 1, 3)
+    return dq.to(q.dtype).permute(0, 2, 1, 3), delta
 
 
 def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, sm_scale: float,
@@ -154,7 +161,7 @@ def _kernels() -> ctypes.CDLL:
         lib = load("flash_attention")
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.hvd_flash_fwd.argtypes = [vp] * 6 + [i32] * 4 + [f32, i32, vp]
-        lib.hvd_flash_bwd_dq.argtypes = [vp] * 8 + [i32] * 4 + [f32, i32, vp]
+        lib.hvd_flash_bwd_dq.argtypes = [vp] * 10 + [i32] * 4 + [f32, i32, vp]
         lib.hvd_flash_bwd_dkv.argtypes = [vp] * 9 + [i32] * 4 + [f32, i32, vp]
         for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq,
                    lib.hvd_flash_bwd_dkv):
@@ -199,10 +206,12 @@ def _check_scale(sm_scale: float) -> None:
 
 
 def _strides(*tensors) -> ctypes.Array:
+    """(batch, seq, head) strides of q, k, v, dout and out, zeros for those
+    not given."""
     vals = []
     for x in tensors:
         vals += [x.stride(0), x.stride(1), x.stride(2)]
-    return (ctypes.c_longlong * 12)(*(vals + [0] * (12 - len(vals))))
+    return (ctypes.c_longlong * 15)(*(vals + [0] * (15 - len(vals))))
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -235,33 +244,37 @@ def flash_fwd_cuda(q, k, v, sm_scale: float, causal: bool):
     return out, lse
 
 
-def _check_stats(lse, delta, q):
+def _check_stats(q, **stats):
     b, s, h, _ = q.shape
-    for name, x in (("lse", lse), ("delta", delta)):
+    for name, x in stats.items():
         if (x.dtype != torch.float32 or tuple(x.shape) != (b, h, s)
                 or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"flash kernel takes {name} as contiguous fp32 "
                              f"[B, H, S] = {(b, h, s)} on {q.device}")
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, sm_scale: float,
+def flash_bwd_dq_cuda(q, k, v, dout, out, lse, dlse, sm_scale: float,
                       causal: bool):
-    """K5 on the card: dq ``[B, S, H, D]`` bf16."""
-    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+    """K5 on the card: dq ``[B, S, H, D]`` bf16 and delta ``[B, H, S]``
+    fp32, ``rowsum(dout * out) - dlse`` (``dlse`` may be None), for K6."""
+    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout),
+                    ("out", out)):
         _check_kernel_input(name, x, q)
-    _check_stats(lse, delta, q)
+    _check_stats(q, lse=lse, **({} if dlse is None else {"dlse": dlse}))
     b, s, h, d = q.shape
     lib = _kernels()
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    strides = _strides(q, k, v, dout)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, dout, out)
     rc = lib.hvd_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              dout.data_ptr(), lse.data_ptr(),
+                              dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                              None if dlse is None else dlse.data_ptr(),
                               delta.data_ptr(), dq.data_ptr(),
                               ctypes.addressof(strides), b, h, s, d,
                               float(sm_scale), int(causal), _stream())
     _check_rc(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale: float,
@@ -270,7 +283,7 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale: float,
     for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
         _check_kernel_input(name, x, q)
     _check_scale(sm_scale)
-    _check_stats(lse, delta, q)
+    _check_stats(q, lse=lse, delta=delta)
     b, s, h, d = q.shape
     lib = _kernels()
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=q.device)
@@ -320,22 +333,20 @@ class _FlashAttention(torch.autograd.Function):
         sm_scale, causal, block_q, block_k = ctx.args
         if dout is None:
             dout = torch.zeros_like(out)
-        # delta = rowsum(dO * O), less the lse cotangent: the fold of
-        # _flash_bhsd_lse_bwd, outside the kernels.
-        delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
-        if dlse is not None:
-            delta = delta - dlse.float()
-        delta = delta.contiguous()
+        # K5 folds the lse cotangent into delta = rowsum(dO * O) - dlse (as
+        # _flash_bhsd_lse_bwd does) and hands delta to K6.
         if _on_cuda(q, k, v, dout):
             if not _kernel_layout(dout):
                 dout = dout.contiguous()  # the incoming gradient's layout
-            dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, sm_scale,
-                                   causal)
+            if dlse is not None:
+                dlse = dlse.float().contiguous()  # e.g. an expanded ones
+            dq, delta = flash_bwd_dq_cuda(q, k, v, dout, out, lse, dlse,
+                                          sm_scale, causal)
             dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale,
                                         causal)
         else:
-            dq = flash_bwd_dq_reference(q, k, v, dout, lse, delta, sm_scale,
-                                        causal, block_k)
+            dq, delta = flash_bwd_dq_reference(q, k, v, dout, out, lse, dlse,
+                                               sm_scale, causal, block_k)
             dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                              sm_scale, causal, block_q)
         return dq, dk, dv, None, None, None, None

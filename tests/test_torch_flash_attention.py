@@ -110,28 +110,85 @@ def test_plain_version_streams_tiles():
         torch.testing.assert_close(lse, ref_lse, rtol=FWD_TOL, atol=FWD_TOL)
 
 
-@pytest.mark.parametrize("case", ["fp32", "head_dim", "layout", "scale"])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("with_dlse", [False, True])
+def test_plain_dq_returns_the_reference_delta(with_dlse, padded):
+    """The plain K5 returns delta = rowsum(dO * O) - dlse as the reference's
+    fold in ``_flash_bwd_bhsd`` gives it (computed here with numpy on the
+    same inputs), which K6 then takes.  Padded: S 23 with zero rows
+    appended up to 32, as the reference's wrapper pads; rows past S get
+    delta 0 and zero dq, and the rows before S the unpadded results."""
+    b, s, h, d = 1, 23, 2, 16
+    rng = np.random.default_rng(4)
+    q, k, v, do, o = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+                      for _ in range(5))
+    dlse = (0.1 * rng.standard_normal((b, h, s))).astype(np.float32)
+    sp = 32 if padded else s
+
+    def pad(x, axis):
+        width = [(0, 0)] * x.ndim
+        width[axis] = (0, sp - s)
+        return torch.from_numpy(np.pad(x, width))
+
+    tq, tk, tv, tdo, to = (pad(x, 1) for x in (q, k, v, do, o))
+    tdlse = pad(dlse, 2) if with_dlse else None
+    scale = d ** -0.5
+    _, lse = tfa.flash_fwd_reference(tq, tk, tv, scale, True, 16)
+    dq, delta = tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, to, lse, tdlse,
+                                           scale, True, 16)
+    # The reference's fold, on [BH, S, D] as _flash_bwd_bhsd holds them.
+    ob, dob = (x.transpose(0, 2, 1, 3).reshape(b * h, s, d) for x in (o, do))
+    want = np.sum(dob.astype(np.float32) * ob.astype(np.float32), axis=-1)
+    if with_dlse:
+        want = want - dlse.reshape(b * h, s)
+    assert delta.shape == (b, h, sp) and delta.is_contiguous()
+    got = delta.reshape(b * h, sp).numpy()
+    # fp32 on both sides; only the order of the 16-term sums differs.
+    np.testing.assert_allclose(got[:, :s], want, rtol=1e-6, atol=1e-6)
+    if padded:
+        assert not got[:, s:].any() and not dq[:, s:].any()
+        dq_s, _ = tfa.flash_bwd_dq_reference(
+            *(torch.from_numpy(x) for x in (q, k, v, do, o)), lse[..., :s],
+            None if tdlse is None else tdlse[..., :s], scale, True, 16)
+        torch.testing.assert_close(dq[:, :s], dq_s, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["fp32", "head_dim", "layout", "scale",
+                                  "dlse_shape", "dlse_dtype", "delta_shape",
+                                  "delta_dtype"])
 def test_kernel_wrapper_raises_on_what_it_does_not_take(case):
-    """The CUDA wrappers check dtype, head_dim, layout and scale before
+    """The CUDA wrappers check dtype, head_dim, layout, scale and the row
+    statistics (K5's dlse, K6's delta: contiguous fp32 [B, H, S]) before
     anything is built or launched, and raise: there is no fallback."""
     shape = (1, 16, 2, 64)
     q = torch.zeros(shape, dtype=torch.bfloat16)
-    scale = 0.125
-    if case == "scale":
-        # K4 and K6 fold the scale into the exponent after the row max.
-        scale, err = -0.125, ValueError
-        with pytest.raises(err):
-            tfa.flash_bwd_dkv_cuda(q, q, q, q, None, None, scale, True)
-    elif case == "fp32":
-        q, err = q.float(), TypeError
-    elif case == "head_dim":
-        q, err = torch.zeros((1, 16, 2, 32), dtype=torch.bfloat16), ValueError
+    lse = torch.zeros((1, 2, 16))
+    bad = lse[..., :8] if case.endswith("shape") else lse.double()
+    scale, err = 0.125, ValueError
+    if case.startswith("dlse"):
+        def call():
+            tfa.flash_bwd_dq_cuda(q, q, q, q, q, lse, bad, scale, True)
+    elif case.startswith("delta"):
+        def call():
+            tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, bad, scale, True)
     else:
-        q, err = torch.zeros((1, 16, 64, 2),
-                             dtype=torch.bfloat16).transpose(-1, -2), \
-            ValueError
+        if case == "scale":
+            # K4 and K6 fold the scale into the exponent after the row max.
+            scale = -0.125
+            with pytest.raises(err):
+                tfa.flash_bwd_dkv_cuda(q, q, q, q, None, None, scale, True)
+        elif case == "fp32":
+            q, err = q.float(), TypeError
+        elif case == "head_dim":
+            q = torch.zeros((1, 16, 2, 32), dtype=torch.bfloat16)
+        else:
+            q = torch.zeros((1, 16, 64, 2),
+                            dtype=torch.bfloat16).transpose(-1, -2)
+
+        def call():
+            tfa.flash_fwd_cuda(q, q, q, scale, True)
     with pytest.raises(err):
-        tfa.flash_fwd_cuda(q, q, q, scale, True)
+        call()
     assert tfa._lib is None  # nothing was built
 
 
