@@ -6,8 +6,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
    hand-written kernels from ``horovod_tpu_torch/csrc`` (one nvcc per
-   source, started together, into ``horovod_tpu_torch/_build/``); prints
-   nvcc's report and each flash kernel's registers and spill bytes.
+   source, started together, into ``horovod_tpu_torch/_build/``) and,
+   beside them, the native negotiation core from ``csrc/core`` (g++);
+   prints nvcc's report and each flash kernel's registers and spill
+   bytes.  Every phase below asserts it ran on the native core.
 2. Kernels: each flash kernel (K4 forward, K5 dQ, K6 dK/dV) against its
    plain PyTorch version, computed in fp32 from the same bf16 inputs, at the
    slice's shape (B 8, S 1024, H 12, D 64, causal; q, k and v are views of
@@ -59,6 +61,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    bitwise equal to the plain arithmetic on the CPU, and the device byte
    counters equal to the ring's byte count.  Step times of two ranks
    sharing one card are printed and are not a speed result.
+7. The negotiated spine (``spine``), through the port's native core.
+   (a) World 1 over NCCL: the GPT_SMALL trainer for 5 steps with
+   ``DistributedOptimizer(AdamW, named_parameters=...)``, plain and with
+   ``num_groups=4``, on a side stream; per step the negotiated responses
+   and tensors, the device plane's completions, host fallbacks (none
+   allowed), K4-K6 launches (12 each), the step time and the host time
+   from the last gradient's enqueue to ``synchronize``'s return.  (b) Two
+   ranks on ``cuda:0`` (as in 6) with ``HOROVOD_WIRE_COMPRESSION=
+   device=int8``: eager cases (allreduce Sum/Average/Min/Max/Product and
+   pre/postscale, a grouped allreduce, a ragged allgather, broadcast, an
+   uneven alltoall, an even reducescatter, a singleton process set, an
+   int4 quantized_allreduce, CPU tensors over the C++ host ring, join with
+   zero participation), each bitwise equal to a CPU simulation of both
+   ranks on the buckets the device plane logged, with K1-K3 launches equal
+   to what those buckets imply; then 3 GPT_SMALL steps with a plain
+   ``DistributedOptimizer``, whose fused gradient buckets ride the int8
+   ring: launches exact per step, parameters bitwise equal across ranks
+   after every step, and each step's first quantized bucket replayed on
+   the CPU from both ranks' inputs, bitwise.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -486,11 +507,15 @@ def slice_phase(hvd, fa, seed, steps=5, batch=8, seq=1024):
     """Horovod's main loop on GPT-2 small: init, broadcast, steps."""
     from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
 
+    from horovod_tpu_torch.context import HorovodContext
+
     hvd.init()
     try:
         if hvd.backend() != "nccl" or hvd.device().type != "cuda":
             raise AssertionError(f"init chose {hvd.backend()} on "
                                  f"{hvd.device()}")
+        if HorovodContext.instance().core.name != "native":
+            raise AssertionError("the slice ran without the native core")
         torch.manual_seed(seed)
         model = GPT(GPT_SMALL).to(hvd.device())
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
@@ -858,9 +883,13 @@ def world2_work(rank, seed):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from horovod_tpu_torch.context import HorovodContext
+
     hvd.init(device="cuda:0")
     rep = {"rank": rank, "backend": hvd.backend(), "device": str(hvd.device())}
     try:
+        if HorovodContext.instance().core.name != "native":
+            raise AssertionError("world 2 ran without the native core")
         # (a) The collectives, counts zeroed just before and read after.
         x = world2_input(seed, rank).cuda()
         cases, wall_ms = {}, {}
@@ -1065,6 +1094,461 @@ def world2_phase(seed, gpu_operations):
     return reports[0], reports[1]
 
 
+# ---------------------------------------------------------------------------
+# The negotiated spine.
+# ---------------------------------------------------------------------------
+
+SPINE_STEPS_W1 = 5
+SPINE_STEPS_W2 = 3
+SPINE_ELEMS = (1 << 20) + 37     # eager inputs: 4 MiB fp32, past the floor
+SPINE_SET_ROWS = 1024            # rows of 8 for the row-wise collectives
+
+
+def spine_world1(hvd, fa, seed, steps=SPINE_STEPS_W1, batch=8, seq=1024):
+    """(a) GPT_SMALL at world 1 over NCCL through the negotiated spine:
+    DistributedOptimizer(AdamW, named_parameters) plain and with
+    num_groups=4, the trainer on a side stream, so that every gradient
+    crosses the enqueue/executor streams by their events."""
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+
+    hvd.init()
+    out = {}
+    try:
+        ctx = HorovodContext.instance()
+        if hvd.backend() != "nccl" or ctx.core.name != "native":
+            raise AssertionError(f"spine world 1 on {hvd.backend()} with the "
+                                 f"{ctx.core.name} core")
+        plane = ctx.device_plane
+        dev = hvd.device()
+        gen = torch.Generator(device=dev).manual_seed(seed + 2)
+        ids = torch.randint(0, GPT_SMALL.vocab_size, (batch, seq),
+                            generator=gen, device=dev)
+        side = torch.cuda.Stream()
+        for variant, kwargs in (("plain", {}), ("num_groups4",
+                                                {"num_groups": 4})):
+            torch.manual_seed(seed)
+            model = GPT(GPT_SMALL).to(dev)
+            hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=1e-4),
+                named_parameters=model.named_parameters(), **kwargs)
+            rows = []
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            for _ in range(steps):
+                before = (dict(fa.LAUNCHES), dict(ctx.stats),
+                          dict(plane.stats), ctx.core.negotiation_stats())
+                t0 = time.perf_counter()
+                with torch.cuda.stream(side):
+                    opt.zero_grad()
+                    loss = lm_loss(model(ids), ids)
+                    loss.backward()
+                    opt.synchronize()
+                    overhead_ms = (time.monotonic()
+                                   - ctx.last_enqueue_at) * 1e3
+                    with opt.skip_synchronize():
+                        opt.step()
+                    value = hvd.allreduce(loss.detach(),
+                                          name="spine.loss").item()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                rose = {n: fa.LAUNCHES[n] - before[0][n] for n in fa.LAUNCHES}
+                if any(r != GPT_SMALL.num_layers for r in rose.values()):
+                    raise AssertionError(f"{variant}: launches {rose}, "
+                                         "expected 12 each")
+                neg = ctx.core.negotiation_stats()
+                rows.append({
+                    "loss": value, "step_ms": step_ms,
+                    "sync_after_last_enqueue_ms": overhead_ms,
+                    "responses": ctx.stats["responses"] - before[1]["responses"],
+                    "tensors": ctx.stats["tensors"] - before[1]["tensors"],
+                    "device_identity": plane.stats["identity"]
+                    - before[2]["identity"],
+                    "host_fallback": plane.stats["host_fallback"]
+                    - before[2]["host_fallback"],
+                    "ctrl_bytes": neg["ctrl_sent"] + neg["ctrl_recv"]
+                    - before[3]["ctrl_sent"] - before[3]["ctrl_recv"],
+                    "launches": rose})
+            losses = [r["loss"] for r in rows]
+            if not all(x == x and abs(x) < float("inf") for x in losses):
+                raise AssertionError(f"{variant}: non-finite loss {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"{variant}: loss did not fall {losses}")
+            if any(r["host_fallback"] for r in rows):
+                raise AssertionError(f"{variant}: host fallbacks {rows}")
+            steady = sorted(r["step_ms"] for r in rows[1:])
+            out[variant] = {"steps": rows,
+                            "median_step_ms": steady[len(steady) // 2],
+                            "launches": dict(fa.LAUNCHES)}
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+    return out
+
+
+def spine_input(seed, rank, n=SPINE_ELEMS):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed + 100 + rank)
+                            .standard_normal(n, dtype=np.float32))
+
+
+SPINE_SPLITS = ([300, 724], [1000, 24])  # alltoall rows, per rank
+# Eager cases whose result differs between the ranks.
+SPINE_PER_RANK = ("alltoall", "alltoall_splits", "reducescatter",
+                  "singleton_set")
+
+
+def spine_eager(hvd, x, rank, sets):
+    """The world-2 eager cases on cuda:0 tensors (one CPU tensor for the
+    host ring); returns name -> result."""
+    out = {}
+    for op in ("Sum", "Average", "Min", "Max", "Product"):
+        out[f"allreduce/{op}"] = hvd.allreduce(x, op=getattr(hvd, op),
+                                               name=f"s.{op}")
+    out["allreduce/scaled"] = hvd.allreduce(
+        x, op=hvd.Sum, prescale_factor=2.0, postscale_factor=0.25,
+        name="s.scaled")
+    half = x.numel() // 2
+    out["grouped"] = torch.cat(hvd.grouped_allreduce(
+        [x[:half], x[half:] * 2], op=hvd.Sum, name="s.grouped"))
+    rows = x[:8 * SPINE_SET_ROWS].reshape(SPINE_SET_ROWS, 8)
+    out["allgather"] = hvd.allgather(rows[:SPINE_SET_ROWS // (2 - rank)],
+                                     name="s.allgather")
+    out["broadcast"] = hvd.broadcast(x, root_rank=1, name="s.broadcast")
+    out["alltoall"], splits = hvd.alltoall(rows, splits=SPINE_SPLITS[rank],
+                                           name="s.alltoall")
+    out["alltoall_splits"] = splits.to(torch.float32)
+    out["reducescatter"] = hvd.reducescatter(rows, op=hvd.Sum,
+                                             name="s.reducescatter")
+    out["singleton_set"] = hvd.allreduce(x, op=hvd.Sum, process_set=sets[rank],
+                                         name=f"s.own{rank}")
+    out["int4"] = hvd.quantized_allreduce(x, op=hvd.Sum, codec="int4")
+    out["host"] = hvd.allreduce(x.cpu(), op=hvd.Sum, name="s.host")
+    return out
+
+
+def spine_expected(seed, logs):
+    """The world-2 eager cases on the CPU from both ranks' inputs: exact
+    arithmetic where the device plane moves fp32 exactly, and the quantized
+    ring of ops.collectives in two threads with the kernels' plain versions
+    on each bucket the ranks logged (zero-padded to its logged length)."""
+    import threading
+
+    from horovod_tpu_torch.ops import collectives as col
+    from horovod_tpu_torch.ops import quantize as qz
+
+    xs = [spine_input(seed, r) for r in range(2)]
+
+    def ring(flats, codec, schedule="ring"):
+        box = (threading.Condition(), {})
+        res = [None, None]
+
+        def run(r):
+            res[r] = col._quantized_ring_allreduce_sum(
+                ThreadRing(r, 2, box), flats[r], codec, schedule)
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if not same_bits(res[0], res[1]):
+            raise AssertionError("simulated ranks differ")
+        return res[0]
+
+    def reduced(names, parts):
+        """Each member's result: the logged buckets holding ``names``,
+        rebuilt from ``parts`` (parts[rank][i] is member i) and summed, by
+        the simulated ring where the bucket was quantized."""
+        out = {}
+        for entry in logs:
+            idx = [names.index(nm) for nm in entry["names"] if nm in names]
+            if not idx:
+                continue
+            if len(idx) != len(entry["names"]):
+                raise AssertionError(f"bucket {entry['names']} mixes cases")
+            flats = []
+            for r in range(2):
+                flat = torch.zeros(entry["length"])
+                cat = torch.cat([parts[r][i] for i in idx])
+                flat[:cat.numel()] = cat
+                flats.append(flat)
+            total = (sum(flats) if entry["codec"] == "none"
+                     else ring(flats, entry["codec"], entry["schedule"]))
+            off = 0
+            for i in idx:
+                m = parts[0][i].numel()
+                out[names[i]] = total[off:off + m]
+                off += m
+        return [out[nm] for nm in names]
+
+    n = xs[0].numel()
+    want = {}
+    (want["allreduce/Sum"],) = reduced(["s.Sum"], [[x] for x in xs])
+    (total,) = reduced(["s.Average"], [[x] for x in xs])
+    want["allreduce/Average"] = qz._div(total, 2)
+    want["allreduce/Min"] = torch.minimum(*xs)
+    want["allreduce/Max"] = torch.maximum(*xs)
+    want["allreduce/Product"] = xs[0] * xs[1]
+    (total,) = reduced(["s.scaled"], [[x * 2.0] for x in xs])
+    want["allreduce/scaled"] = total * 0.25
+    half = n // 2
+    want["grouped"] = torch.cat(reduced(
+        ["s.grouped.0", "s.grouped.1"], [[x[:half], x[half:] * 2]
+                                         for x in xs]))
+    rows = [x[:8 * SPINE_SET_ROWS].reshape(SPINE_SET_ROWS, 8) for x in xs]
+    want["allgather"] = torch.cat([rows[0][:SPINE_SET_ROWS // 2], rows[1]])
+    want["broadcast"] = xs[1]
+    for r in range(2):
+        got_rows = []
+        for src in range(2):
+            off = sum(SPINE_SPLITS[src][:r])
+            got_rows.append(rows[src][off:off + SPINE_SPLITS[src][r]])
+        want[f"alltoall/{r}"] = torch.cat(got_rows)
+        want[f"alltoall_splits/{r}"] = torch.tensor(
+            [SPINE_SPLITS[src][r] for src in range(2)], dtype=torch.float32)
+        per = SPINE_SET_ROWS // 2
+        want[f"reducescatter/{r}"] = (rows[0] + rows[1])[r * per:(r + 1) * per]
+        want[f"singleton_set/{r}"] = xs[r]
+    want["int4"] = ring(list(xs), "int4")
+    want["host"] = xs[0] + xs[1]
+    return {k: digest(v) for k, v in want.items()}
+
+
+def spine_rank(rank, port, seed, gpu_operations, tmpdir, queue):
+    """One of two ranks on cuda:0 for the spine's world-2 phase, with the
+    device codec int8; puts its report on ``queue``."""
+    import traceback
+
+    os.environ.update(
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+        HOROVOD_GPU_OPERATIONS=gpu_operations,
+        HOROVOD_WIRE_COMPRESSION="device=int8")
+    for var in ("HOROVOD_DEVICE_SCHEDULE",
+                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(spine_work(rank, seed, tmpdir))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def spine_work(rank, seed, tmpdir):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.ops import device_plane as dp
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantize as qz
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Each step's first quantized bucket, input and result, for the CPU
+    # replay: the plane's ring is wrapped here, in the script.
+    capture = {"step": None, "saved": set()}
+    ring = dp._quantized_ring_allreduce_sum
+
+    def capturing_ring(r, flat, codec, schedule):
+        res = ring(r, flat, codec, schedule)
+        step = capture["step"]
+        if step is not None and step not in capture["saved"]:
+            capture["saved"].add(step)
+            torch.save({"flat": flat.cpu(), "digest": digest(res),
+                        "codec": codec, "schedule": schedule},
+                       os.path.join(tmpdir, f"bucket{rank}.{step}.pt"))
+        return res
+
+    dp._quantized_ring_allreduce_sum = capturing_ring
+    hvd.init(device="cuda:0")
+    rep = {"rank": rank, "backend": hvd.backend()}
+    try:
+        ctx = HorovodContext.instance()
+        plane = ctx.device_plane
+        if ctx.core.name != "native":
+            raise AssertionError(f"{ctx.core.name} core")
+        sets = [hvd.add_process_set([0]), hvd.add_process_set([1])]
+        x = spine_input(seed, rank).cuda()
+        qz.reset_launch_counts()
+        plane.bucket_log.clear()
+        fallback0 = plane.stats["host_fallback"]
+        results = spine_eager(hvd, x, rank, sets)
+        torch.cuda.synchronize()
+        logs = list(plane.bucket_log)
+        codec_buckets = sum(e["codec"] == "int8" for e in logs)
+        want = {"quant_int8": 2 * codec_buckets, "quant_int4": 2,
+                "dequant": 3 * codec_buckets + 3}
+        if dict(qz.LAUNCHES) != want:
+            raise AssertionError(f"eager launches {dict(qz.LAUNCHES)}, "
+                                 f"the logged buckets imply {want}")
+        if plane.stats["host_fallback"] != fallback0:
+            raise AssertionError("eager cases fell back to the host ring")
+        # Join: rank 1 joins; rank 0's Sum runs with its zeros, demoted by
+        # negotiation to the host ring (the reference's semantics).
+        if rank == 0:
+            results["join_sum"] = hvd.allreduce(x, op=hvd.Sum, name="s.join")
+        rep["join"] = hvd.join()
+        rep["join_fallback"] = plane.stats["host_fallback"] - fallback0
+        digests = {f"{k}/{rank}" if k in SPINE_PER_RANK else k: digest(v)
+                   for k, v in results.items()}
+        if rank == 0 and digests["join_sum"] != digest(x):
+            raise AssertionError("joined Sum is not rank 0's own input")
+        rep["eager"] = {"digests": digests, "bucket_log": logs,
+                        "launches": dict(qz.LAUNCHES)}
+        del x, results
+        torch.cuda.empty_cache()
+        rep["trainer"] = spine_trainer(hvd, ctx, plane, qz, fa, GPT,
+                                       GPT_SMALL, lm_loss, seed, rank,
+                                       capture)
+    finally:
+        hvd.shutdown()
+    return rep
+
+
+def spine_trainer(hvd, ctx, plane, qz, fa, GPT, GPT_SMALL, lm_loss, seed,
+                  rank, capture, batch=4, seq=1024):
+    """3 steps of GPT_SMALL with plain DistributedOptimizer(AdamW): the
+    gradients' fused buckets ride the device codec's quantized ring."""
+    dev = hvd.device()
+    torch.manual_seed(seed)
+    model = GPT(GPT_SMALL).to(dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), device_compression="none")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10 + rank)
+    ids = torch.randint(0, GPT_SMALL.vocab_size, (batch, seq), generator=gen,
+                        device=dev)
+    steps = []
+    torch.cuda.synchronize()
+    qz.reset_launch_counts()
+    fa.reset_launch_counts()
+    for step in range(SPINE_STEPS_W2):
+        plane.bucket_log.clear()
+        before = {**qz.LAUNCHES, **fa.LAUNCHES}
+        stats0 = dict(plane.stats)
+        capture["step"] = step
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lm_loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        capture["step"] = None
+        value = hvd.allreduce(loss.detach(), name="spine.loss").item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        logs = [e for e in plane.bucket_log if "spine.loss" not in e["names"]]
+        quantized = [e for e in logs if e["codec"] == "int8"]
+        now = {**qz.LAUNCHES, **fa.LAUNCHES}
+        rose = {k: now[k] - before[k] for k in now}
+        want = {"quant_int8": 2 * len(quantized), "quant_int4": 0,
+                "dequant": 3 * len(quantized),
+                "flash_fwd": GPT_SMALL.num_layers,
+                "flash_bwd_dq": GPT_SMALL.num_layers,
+                "flash_bwd_dkv": GPT_SMALL.num_layers}
+        if rose != want:
+            raise AssertionError(f"step {step}: launches {rose}, the logged "
+                                 f"buckets imply {want}")
+        if plane.stats["host_fallback"] != stats0["host_fallback"]:
+            raise AssertionError(f"step {step}: host fallbacks")
+        params = digest(torch.cat([p.detach().reshape(-1)
+                                   for p in model.parameters()]))
+        peers = hvd.allgather_object(params, name=f"spine.params.{step}")
+        if len(set(peers)) != 1:
+            raise AssertionError(f"step {step}: parameters differ across "
+                                 "ranks")
+        steps.append({
+            "loss": value, "step_ms": step_ms, "launches": rose,
+            "buckets": len(logs), "quantized_buckets": len(quantized),
+            "bucket_elems": [e["length"] for e in logs],
+            "bucket_tensors": [len(e["names"]) for e in logs],
+            "fused_tensors": plane.stats["fused_tensors"]
+            - stats0["fused_tensors"]})
+    losses = [s["loss"] for s in steps]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    return {"steps": steps, "launches": {**qz.LAUNCHES, **fa.LAUNCHES},
+            "params_identical_across_ranks": True,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def spine_replay(tmpdir, steps=SPINE_STEPS_W2):
+    """Each step's first quantized bucket, replayed on the CPU from both
+    ranks' captured inputs with the kernels' plain versions."""
+    import threading
+
+    from horovod_tpu_torch.ops import collectives as col
+
+    checked = []
+    for step in range(steps):
+        caps = [torch.load(os.path.join(tmpdir, f"bucket{r}.{step}.pt"))
+                for r in range(2)]
+        box = (threading.Condition(), {})
+        res = [None, None]
+
+        def run(r):
+            res[r] = col._quantized_ring_allreduce_sum(
+                ThreadRing(r, 2, box), caps[r]["flat"], caps[r]["codec"],
+                caps[r]["schedule"])
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for r in range(2):
+            if digest(res[r]) != caps[r]["digest"]:
+                raise AssertionError(f"step {step}: rank {r}'s bucket "
+                                     "differs from the CPU replay")
+        checked.append(caps[0]["flat"].numel())
+    return checked
+
+
+def spine_world2(seed, gpu_operations):
+    """(b) Two ranks on cuda:0 with HOROVOD_WIRE_COMPRESSION=device=int8:
+    the eager cases, then the GPT_SMALL trainer; every result held against
+    the other rank and a CPU simulation on the logged buckets."""
+    import shutil
+    import tempfile
+
+    tmpdir = tempfile.mkdtemp(prefix="hvd_spine_")
+    try:
+        reports, codes = spawn_pair(spine_rank,
+                                    (seed, gpu_operations, tmpdir), 900)
+        for rep in reports.values():
+            if "error" in rep:
+                raise AssertionError(f"spine rank {rep['rank']} failed:\n"
+                                     f"{rep['error']}")
+        if codes != [0, 0]:
+            raise AssertionError(f"spine world-2 exit codes {codes}")
+        logs = [reports[r]["eager"]["bucket_log"] for r in range(2)]
+        if logs[0] != logs[1]:
+            raise AssertionError("the ranks logged different buckets")
+        want = spine_expected(seed, logs[0])
+        for r in range(2):
+            got = reports[r]["eager"]["digests"]
+            for key, d in want.items():
+                if key in got and got[key] != d:
+                    raise AssertionError(f"rank {r} {key}: differs from the "
+                                         "CPU simulation")
+            missing = [k for k in got if k not in want and k != "join_sum"]
+            if missing:
+                raise AssertionError(f"unchecked cases {missing}")
+        replayed = spine_replay(tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    for r in range(2):
+        if reports[r]["join_fallback"] != (1 if r == 0 else 0):
+            raise AssertionError(f"rank {r} join fallbacks "
+                                 f"{reports[r]['join_fallback']}")
+    return reports[0], reports[1], replayed
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1098,10 +1582,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ("flash_attention", "quantize")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, at once
+    # One nvcc per kernel source and the native core's g++ builds, at once.
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        core = pool.submit(_build.build_core)
         builds = dict(zip(sources, pool.map(_build.build, sources)))
+        core_lib = core.result()
     print(json.dumps({"phase": "build", "seconds":
-                      round(time.perf_counter() - t0, 3)}), flush=True)
+                      round(time.perf_counter() - t0, 3),
+                      "native_core": os.path.relpath(core_lib)}), flush=True)
     for name, (_, report) in builds.items():
         if report:
             print(f"nvcc {name}.cu:\n{report.strip()}", flush=True)
@@ -1168,6 +1656,11 @@ def main() -> int:
     print(json.dumps({"phase": "slice", "model": "GPT_SMALL",
                       "batch": 8, "seq": 1024, "card": card, **res}),
           flush=True)
+    torch.cuda.empty_cache()
+    spine1 = spine_world1(hvd, fa, args.seed)
+    print(json.dumps({"phase": "spine", "part": "world1_nccl",
+                      "model": "GPT_SMALL", "batch": 8, "seq": 1024,
+                      "card": card, **spine1}), flush=True)
 
     torch.cuda.empty_cache()
     nccl, _ = spawn_pair(nccl_pair_rank, (), 300)
@@ -1186,14 +1679,25 @@ def main() -> int:
                           "note": "two ranks share one card: step times "
                                   "are not a speed result",
                           "card": card, **rep}), flush=True)
+    torch.cuda.empty_cache()
+    spine0, spine1_rank, replayed = spine_world2(args.seed, gpu_operations)
+    for rep in (spine0, spine1_rank):
+        print(json.dumps({"phase": "spine", "part": "world2",
+                          "model": "GPT_SMALL", "batch_per_rank": 4,
+                          "seq": 1024, "gpu_operations": gpu_operations,
+                          "device_codec": "int8",
+                          "replayed_bucket_elems": replayed,
+                          "note": "two ranks share one card: step times "
+                                  "are not a speed result",
+                          "card": card, **rep}), flush=True)
     ef = rank0["ef_trainer"]
-    codec_launches = {"quant_int8": ef["launches"]["quant_int8"],
-                      "quant_int4": rank0["collectives"]["launches"][
-                          "quant_int4"],
-                      "dequant": ef["launches"]["dequant"]}
-    codec_path = {"quant_int8": "world-2 EF trainer",
-                  "quant_int4": "world-2 collectives (int4 cases)",
-                  "dequant": "world-2 EF trainer"}
+    trainer = spine0["trainer"]["launches"]
+    codec_launches = {"quant_int8": trainer["quant_int8"],
+                      "quant_int4": spine0["eager"]["launches"]["quant_int4"],
+                      "dequant": trainer["dequant"]}
+    codec_path = {"quant_int8": "spine world-2 trainer (device codec int8)",
+                  "quant_int4": "spine world-2 eager cases (the int4 case)",
+                  "dequant": "spine world-2 trainer (device codec int8)"}
 
     summary = []
     for name, (replaces, tpu_kernel) in KERNELS.items():
@@ -1212,6 +1716,8 @@ def main() -> int:
             "ptxas": {k: v for k, v in ptxas.items()
                       if k.startswith(KERNEL_SYMBOL[name])},
             "launch_path": "world-1 trainer",
+            "launches_spine_world1": spine1["plain"]["launches"][name],
+            "launches_spine_world2": trainer[name],
             "launches_world2_ef_trainer": ef["launches"][name]})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
         ms, plain, (bound_ms, bound_by), lib = codec_timing[name]
@@ -1224,7 +1730,10 @@ def main() -> int:
             "plain_ms": plain["device_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None if lib is None else lib["device_ms"],
-            "library_call": CODEC_LIBRARY[name], "tpu_kernel": tpu_kernel})
+            "library_call": CODEC_LIBRARY[name], "tpu_kernel": tpu_kernel,
+            "launches_world2_ef_trainer": ef["launches"][name],
+            "launches_world2_collectives":
+                rank0["collectives"]["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,14 @@
 """horovod_tpu_torch: the PyTorch and CUDA port of horovod_tpu.
 
-``import horovod_tpu_torch as hvd`` gives Horovod's main loop on an NVIDIA
-card: ``hvd.init()``, ``hvd.broadcast_parameters``, and a train step whose
-gradients ``hvd.DistributedOptimizer`` averages over NCCL, under the names
-``horovod_tpu.torch`` uses; with ``device_compression=`` the gradients ride
-the quantized ring (``quantized_allreduce``) with error feedback.  The
+``import horovod_tpu_torch as hvd`` gives Horovod on an NVIDIA card:
+``hvd.init()`` starts the port's own copy of the native negotiation core
+beside a ``torch.distributed`` process group; every eager collective
+(``allreduce``, ``allgather``, ``broadcast``, ``alltoall``,
+``reducescatter``, their grouped forms, ``barrier``, ``join``) is enqueued
+under a name, negotiated across ranks, fused, and run over NCCL on the
+card (the device plane) or over the core's TCP ring for host buffers;
+``hvd.DistributedOptimizer`` reduces gradients through the same path, with
+``device_compression=`` on the quantized ring with error feedback.  The
 package imports torch and never jax or the JAX package ``horovod_tpu``,
 which stays beside it as the reference.
 """
@@ -15,19 +19,27 @@ __version__ = "0.1.0"
 
 from . import models, ops  # noqa: F401
 from .ops import quantize  # noqa: F401
-from .basics import (backend, device, init, initialized,  # noqa: F401
-                     is_initialized, local_rank, local_size, rank, shutdown,
-                     size)
+from .basics import (backend, cross_rank, cross_size,  # noqa: F401
+                     cuda_built, device, gloo_built, init, initialized,
+                     is_homogeneous, is_initialized, local_rank, local_size,
+                     native_core_built, nccl_built, rank, shutdown, size)
 from .compression import Compression  # noqa: F401
 from .exceptions import HorovodInternalError  # noqa: F401
 from .functions import (allgather_object, broadcast_object,  # noqa: F401
                         broadcast_optimizer_state, broadcast_parameters)
 from .mpi_ops import (Adasum, Average, Max, Min, Product, Sum,  # noqa: F401
                       allgather, allgather_async, allreduce, allreduce_,
-                      allreduce_async, allreduce_async_, barrier, broadcast,
-                      broadcast_, broadcast_async, broadcast_async_, poll,
-                      synchronize)
+                      allreduce_async, allreduce_async_, alltoall,
+                      alltoall_async, barrier, broadcast, broadcast_,
+                      broadcast_async, broadcast_async_, grouped_allgather,
+                      grouped_allgather_async, grouped_allreduce,
+                      grouped_allreduce_, grouped_allreduce_async,
+                      grouped_allreduce_async_, grouped_reducescatter,
+                      grouped_reducescatter_async, join, poll,
+                      reducescatter, reducescatter_async, synchronize)
 from .ops.collectives import (quantized_allgather,  # noqa: F401
                               quantized_allreduce, quantized_broadcast)
 from .optimizer import DistributedOptimizer  # noqa: F401
+from .process_sets import (ProcessSet, add_process_set,  # noqa: F401
+                           global_process_set, remove_process_set)
 from .wire import ReduceOp  # noqa: F401

@@ -1,20 +1,21 @@
 """Runtime lifecycle and identity API.
 
 Reference: horovod/common/basics.py (init/shutdown/rank/size/local_rank/...)
-and ``horovod_tpu/basics.py``.  Where the JAX package starts its negotiated
-core and builds a device mesh, this module forms a ``torch.distributed``
-process group over the ranks: NCCL when the rank's device is a CUDA card,
-gloo when the caller asked for the CPU, or for gloo on the card with
+and ``horovod_tpu/basics.py``.  ``init()`` forms a ``torch.distributed``
+process group over the ranks -- NCCL when the rank's device is a CUDA card,
+gloo when the caller asked for the CPU, or gloo on the card with
 ``HOROVOD_GPU_OPERATIONS=GLOO`` (NCCL refuses two ranks of one group on one
-card).  The group is formed at world size 1 too, so the gradient allreduce
-one card runs is the same call that n cards run.
+card) -- and then starts the negotiation core and its executor
+(``context.HorovodContext``) beside it.  Both are formed at world size 1
+too, so one card runs the same negotiated path that n cards run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Optional, Union
+import socket
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -30,6 +31,10 @@ class _Runtime:
     cfg: Config
     device: torch.device
     backend: str
+    # The group of the collectives the caller's thread issues in issue
+    # order (the quantized_* functions and error feedback), apart from the
+    # world group the executor's negotiated collectives run on.
+    caller_group: object
 
 
 _runtime: Optional[_Runtime] = None
@@ -56,7 +61,8 @@ def _select_device(device, local_rank: int) -> torch.device:
     return dev
 
 
-def init(device: Union[str, torch.device, None] = None) -> None:
+def init(device: Union[str, torch.device, None] = None,
+         process_sets: Optional[Sequence] = None) -> None:
     """Initialize Horovod on this rank.
 
     Rank, size and local rank come from ``HOROVOD_RANK``/``HOROVOD_SIZE``/
@@ -67,6 +73,9 @@ def init(device: Union[str, torch.device, None] = None) -> None:
     than one meet at
     ``tcp://HOROVOD_GLOO_RENDEZVOUS_ADDR:HOROVOD_GLOO_RENDEZVOUS_PORT``;
     a collective waits ``HOROVOD_GLOO_TIMEOUT_SECONDS`` (600) for its peers.
+    The native core's coordinator listens on a port rank 0 picks and
+    shares through the process group.  ``process_sets`` are registered
+    once the core is up, as ``add_process_set`` does.
     """
     global _runtime
     if _runtime is not None:
@@ -95,14 +104,52 @@ def init(device: Union[str, torch.device, None] = None) -> None:
             backend,
             init_method=f"tcp://{cfg.rendezvous_addr}:{cfg.rendezvous_port}",
             rank=cfg.rank, world_size=cfg.size, timeout=timeout)
-    _runtime = _Runtime(cfg=cfg, device=dev, backend=backend)
+    from .context import HorovodContext
+
+    try:
+        caller_group = dist.new_group(list(range(cfg.size)))
+        _runtime = _Runtime(cfg=cfg, device=dev, backend=backend,
+                            caller_group=caller_group)
+        HorovodContext.start(cfg, dev, backend,
+                             core_port=_core_port(cfg, dev, backend))
+        for ps in process_sets or ():
+            from .process_sets import add_process_set
+
+            add_process_set(ps)
+    except BaseException:
+        _runtime = None
+        HorovodContext.shutdown()
+        dist.destroy_process_group()
+        raise
     log.debug("init rank %d/%d on %s (%s)", cfg.rank, cfg.size, dev, backend)
 
 
+def _core_port(cfg: Config, dev: torch.device, backend: str) -> int:
+    """The native core's rendezvous port: a free port rank 0 picks, shared
+    with the other ranks through the process group (0 for one rank, whose
+    core needs none)."""
+    if cfg.size == 1:
+        return 0
+    port = 0
+    if cfg.rank == 0:
+        with socket.socket() as sock:
+            sock.bind((cfg.rendezvous_addr, 0))
+            port = sock.getsockname()[1]
+    box = [port]
+    dist.broadcast_object_list(box, src=0,
+                               device=dev if backend == "nccl" else None)
+    return int(box[0])
+
+
 def shutdown() -> None:
+    """Stop the negotiation core and its executor, then the process
+    groups."""
     global _runtime
     if _runtime is None:
         return
+    from .context import HorovodContext
+
+    HorovodContext.shutdown()
     if dist.is_initialized():
         dist.destroy_process_group()
     _runtime = None
@@ -147,3 +194,54 @@ def backend() -> str:
     """``"nccl"`` on a card (``"gloo"`` under HOROVOD_GPU_OPERATIONS=GLOO),
     ``"gloo"`` on the CPU."""
     return _get().backend
+
+
+def cross_rank() -> int:
+    """This rank's host among the job's hosts (``HOROVOD_CROSS_RANK``)."""
+    return _get().cfg.cross_rank
+
+
+def cross_size() -> int:
+    """The number of hosts (``HOROVOD_CROSS_SIZE``)."""
+    return _get().cfg.cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks."""
+    cfg = _get().cfg
+    return cfg.size == cfg.local_size * cfg.cross_size
+
+
+def caller_group():
+    """The process group of collectives issued on the caller's thread."""
+    return _get().caller_group
+
+
+def wire_device() -> torch.device:
+    """Where the process group takes tensors: the card under NCCL, the
+    host under gloo."""
+    rt = _get()
+    return rt.device if rt.backend == "nccl" else torch.device("cpu")
+
+
+def native_core_built() -> bool:
+    """True when the native core library builds and loads here."""
+    from . import _core
+
+    try:
+        _core.load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def cuda_built() -> bool:
+    return torch.backends.cuda.is_built()

@@ -1,22 +1,26 @@
-"""Parameter and optimizer-state broadcast for torch models.
+"""Parameter, optimizer-state and object broadcast for torch models.
 
-Reference: horovod/torch/functions.py — the
+Reference: horovod/torch/functions.py -- the
 ``hvd.broadcast_parameters(model.state_dict(), root_rank=0)`` idiom every
-training script starts with — and ``horovod_tpu/functions.py``
-(``broadcast_parameters`` over a pytree, ``broadcast_optimizer_state``).
-Tensors are broadcast in place; an optimizer's non-tensor state rides one
-pickled broadcast of its structure.
+training script starts with -- and ``horovod_tpu/functions.py``
+(``broadcast_parameters``, ``broadcast_optimizer_state``,
+``broadcast_object``, ``allgather_object``).  Everything rides the
+negotiated spine under names, on the given process set: tensors are
+broadcast in place; objects and an optimizer's non-tensor state cross as
+pickled bytes on the host ring (two phases: size, then payload).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Tuple, Union
+import pickle
+from typing import Any, Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import basics
-from .mpi_ops import (allgather_object, broadcast_async_,  # noqa: F401
-                      broadcast_object, synchronize)
+from .mpi_ops import allgather, broadcast, broadcast_async_, synchronize
+from .process_sets import ProcessSet
 
 
 class _TensorPlaceholder:
@@ -26,6 +30,42 @@ class _TensorPlaceholder:
     def __init__(self, shape, dtype):
         self.shape = shape
         self.dtype = dtype
+
+
+def broadcast_object(obj: Any, root_rank: int = 0, name: Optional[str] = None,
+                     process_set: Optional[ProcessSet] = None) -> Any:
+    """Broadcast a picklable object from ``root_rank``."""
+    name = name or "broadcast.object"
+    if basics.rank() == root_rank:
+        payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8).copy()
+        sz = np.array([payload.size], dtype=np.int64)
+    else:
+        payload = None
+        sz = np.zeros(1, dtype=np.int64)
+    sz = np.asarray(broadcast(sz, root_rank, name=f"{name}.size",
+                              process_set=process_set))
+    if payload is None:
+        payload = np.zeros(int(sz[0]), dtype=np.uint8)
+    payload = np.asarray(broadcast(payload, root_rank, name=f"{name}.payload",
+                                   process_set=process_set))
+    return pickle.loads(payload.tobytes())
+
+
+def allgather_object(obj: Any, name: Optional[str] = None,
+                     process_set: Optional[ProcessSet] = None) -> list:
+    """Gather one picklable object per rank into a rank-ordered list."""
+    name = name or "allgather.object"
+    payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8).copy()
+    sizes = np.asarray(allgather(np.array([payload.size], dtype=np.int64),
+                                 name=f"{name}.size", process_set=process_set))
+    gathered = np.asarray(allgather(payload, name=f"{name}.payload",
+                                    process_set=process_set))
+    out = []
+    offset = 0
+    for size in sizes.ravel().tolist():
+        out.append(pickle.loads(gathered[offset:offset + size].tobytes()))
+        offset += size
+    return out
 
 
 def broadcast_parameters(params: Union[dict, Iterable[Tuple[str, Any]]],
@@ -46,6 +86,7 @@ def broadcast_parameters(params: Union[dict, Iterable[Tuple[str, Any]]],
         # detach(): the same storage, without autograd's in-place check on
         # leaves that require grad.
         handles.append(broadcast_async_(p.detach(), root_rank,
+                                        name=f"broadcast.params.{name}",
                                         process_set=process_set))
     for h in handles:
         synchronize(h)
@@ -83,15 +124,17 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         return v
 
     synced = broadcast_object(strip(optimizer.state_dict()), root_rank,
+                              name="broadcast.opt_state.structure",
                               process_set=process_set)
     if basics.rank() != root_rank:
         optimizer.load_state_dict(fill(synced))
 
     handles = []
-    for _, pstate in sorted(optimizer.state_dict()["state"].items()):
-        for _, value in sorted(pstate.items()):
+    for pid, pstate in sorted(optimizer.state_dict()["state"].items()):
+        for key, value in sorted(pstate.items()):
             if isinstance(value, torch.Tensor):
-                handles.append(broadcast_async_(value, root_rank,
-                                                process_set=process_set))
+                handles.append(broadcast_async_(
+                    value, root_rank, name=f"broadcast.opt_state.{pid}.{key}",
+                    process_set=process_set))
     for h in handles:
         synchronize(h)

@@ -12,17 +12,31 @@ of the source, of every header in ``csrc/`` (``*.cuh``, which a source
 includes by name) and of the flags, so an edited kernel or header is
 rebuilt and a built one is reused.  Nothing here runs at import: the CPU
 tests import every module, and there is no ``nvcc`` there.
+
+The negotiation core (``csrc/core/``, the port's own copy of the C++
+library's sources) is built the same way by ``g++``, one compiler per
+source at once, then linked:
+
+    g++ -O2 -g -std=c++17 -fPIC -pthread -c <source>.cc
+    g++ -shared -pthread -o horovod_tpu_torch/_build/libhvd_core-<hash>.so
+        *.o -lrt
+
+under an ``fcntl`` lock in ``_build/`` (test workers that need the core at
+once build it once), in a work directory of the building process,
+renamed into place when it is whole.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -79,3 +93,68 @@ def build(name: str) -> Tuple[Path, str]:
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built on first use."""
     return ctypes.CDLL(str(build(name)[0]))
+
+
+CORE_DIR = CSRC_DIR / "core"
+CXX_FLAGS = ["-O2", "-g", "-std=c++17", "-fPIC", "-pthread"]
+LINK_FLAGS = ["-shared", "-pthread"]
+LINK_LIBS = ["-lrt"]  # shm_open/shm_unlink live in librt on older glibc
+
+
+def core_digest(core_dir: Path = CORE_DIR, flags=None) -> str:
+    """Hash of every source and header of the core (by name and content)
+    and of the compile and link flags."""
+    if flags is None:
+        flags = CXX_FLAGS + LINK_FLAGS + LINK_LIBS
+    digest = hashlib.sha256()
+    for path in sorted(core_dir.glob("*.cc")) + sorted(core_dir.glob("*.h")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return digest.hexdigest()[:16]
+
+
+def _compile(cxx: str, src: Path, obj: Path) -> Tuple[int, str]:
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-c", str(src), "-o", str(obj)],
+                          capture_output=True, text=True)
+    return proc.returncode, f"{src.name}:\n{proc.stdout}{proc.stderr}"
+
+
+def build_core(core_dir: Path = CORE_DIR, build_dir: Path = BUILD_DIR,
+               cxx: str = "g++") -> Path:
+    """``libhvd_core-<hash>.so``, compiled from ``core_dir`` by ``cxx``
+    unless it is built already.  Raises with the compiler's output on
+    failure.  The compiler is ``g++`` from PATH whatever ``$CXX`` says: a
+    library built by another toolchain than the ``libstdc++`` the process
+    loads can crash at run time."""
+    target = build_dir / f"libhvd_core-{core_digest(core_dir)}.so"
+    if target.exists():
+        return target
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / "core.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if target.exists():  # another process built it meanwhile
+            return target
+        work = build_dir / f"core.tmp{os.getpid()}"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir()
+        try:
+            sources = sorted(core_dir.glob("*.cc"))
+            objs: List[Path] = [work / f"{s.stem}.o" for s in sources]
+            with ThreadPoolExecutor(len(sources)) as pool:
+                results = list(pool.map(_compile, [cxx] * len(sources),
+                                        sources, objs))
+            failed = [out for rc, out in results if rc != 0]
+            if failed:
+                raise RuntimeError("native core build failed:\n"
+                                   + "\n".join(failed))
+            lib = work / target.name
+            proc = subprocess.run(
+                [cxx, *LINK_FLAGS, "-o", str(lib), *map(str, objs),
+                 *LINK_LIBS], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("native core link failed:\n"
+                                   + proc.stdout + proc.stderr)
+            os.replace(lib, target)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return target

@@ -1,33 +1,30 @@
-"""Collectives on device tensors through ``torch.distributed``.
+"""Block-scaled (quantized) collectives on device tensors.
 
-Port of ``horovod_tpu/ops/collectives.py``: where the JAX package lowers a
-collective to ``psum``/``all_gather`` over ICI inside ``jit``, this module
-issues the NCCL (on a card) or gloo (on the CPU) collective of the rank's
-process group.  Tensors stay where they are, except that gloo takes host
-tensors only: under ``HOROVOD_GPU_OPERATIONS=GLOO`` a card's tensors are
-staged through host memory for the transfer, and the kernels still run on
-the card.
+Port of the quantized half of ``horovod_tpu/ops/collectives.py``: where the
+JAX package lowers the quantized ring to ``lax.ppermute`` hops inside
+``jit``, this module moves block-scaled encodings (``ops/quantize.py``)
+between the ranks of a ``torch.distributed`` group: ``lax.ppermute``
+becomes a ring exchange through ``dist.batch_isend_irecv`` and
+``lax.axis_index`` the rank's position in the group.  Every reduce-scatter
+hop re-encodes its running fp32 partial and accumulates in fp32; the gather
+phase forwards the owner's encoding verbatim, so every rank decodes
+identical bytes and the result is bit-identical across ranks.  Tensors stay
+where they are, except that gloo takes host tensors only: under
+``HOROVOD_GPU_OPERATIONS=GLOO`` a card's tensors are staged through host
+memory for each transfer, and the kernels still run on the card.
 
-The quantized half (``quantized_allreduce``, ``quantized_allgather``,
-``quantized_broadcast``) moves block-scaled encodings (``ops/quantize.py``)
-instead of fp32.  The reference's ``lax.ppermute`` hops become ring
-exchanges through ``dist.batch_isend_irecv``; ``lax.axis_index`` becomes
-the rank.  Every reduce-scatter hop re-encodes its running fp32 partial and
-accumulates in fp32; the gather phase forwards the owner's encoding
-verbatim, so every rank decodes identical bytes and the result is
-bit-identical across ranks.  With ``HOROVOD_WIRE_COMPRESSION=device=<codec>``
-the plain entry points dispatch eligible tensors to them; ineligible ones
-take the plain collective.
-
-Without the negotiated core (a later slice), ranks match collectives by the
-order they issue them, as ``torch.distributed`` requires.  The optimizer's
-gradient hooks fire in autograd order, which is the same on every rank of
-one program.
+Two callers run these rings.  The device plane (``ops/device_plane.py``)
+runs ``_quantized_ring_allreduce_sum`` on a negotiated fused bucket under
+``HOROVOD_WIRE_COMPRESSION=device=<codec>``, on the executor's thread and
+the process set's group.  The public ``quantized_*`` functions and the
+optimizer's error feedback run on the caller's thread, in issue order, on a
+process group of their own (``basics.caller_group()``), so the two threads'
+collectives can never interleave differently on two ranks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -38,219 +35,39 @@ from ..utils.env import (get_device_schedule, get_wire_compression_min_bytes,
 from ..wire import ReduceOp
 from . import quantize as qz
 
-_DIST_OPS = {
-    ReduceOp.SUM: dist.ReduceOp.SUM,
-    ReduceOp.AVERAGE: dist.ReduceOp.SUM,
-    ReduceOp.MIN: dist.ReduceOp.MIN,
-    ReduceOp.MAX: dist.ReduceOp.MAX,
-    ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
-}
+
+class GroupRing:
+    """A rank's place in a process group and its ring exchange: send a list
+    of tensors to one position of the group and receive tensors of the same
+    shapes from another, all in one ``batch_isend_irecv``.  ``rank`` and
+    ``size`` are the position in and the size of the group; ``wire`` is the
+    device the group's backend takes tensors on."""
+
+    def __init__(self, group, ranks: Sequence[int], me: int,
+                 wire: torch.device):
+        self.group = group
+        self.ranks = [int(r) for r in ranks]
+        self.rank = self.ranks.index(int(me))
+        self.size = len(self.ranks)
+        self.wire = wire
+
+    def exchange(self, tensors: Sequence[torch.Tensor], dst: int,
+                 src: int) -> List[torch.Tensor]:
+        sends = [t.to(self.wire).contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = ([dist.P2POp(dist.isend, t, self.ranks[dst], self.group)
+                for t in sends]
+               + [dist.P2POp(dist.irecv, t, self.ranks[src], self.group)
+                  for t in recvs])
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
-class Handle:
-    """An in-flight collective: ``wait()`` returns its result tensor."""
-
-    __slots__ = ("_work", "_result", "_finish", "_done")
-
-    def __init__(self, work, result: torch.Tensor,
-                 finish: Optional[Callable[[], Any]] = None):
-        self._work = work
-        self._result = result
-        self._finish = finish
-        self._done = False
-
-    def poll(self) -> bool:
-        return self._done or self._work is None or self._work.is_completed()
-
-    def wait(self) -> torch.Tensor:
-        if not self._done:
-            if self._work is not None:
-                self._work.wait()
-            if self._finish is not None:
-                out = self._finish()
-                if out is not None:
-                    self._result = out
-            self._done = True
-        return self._result
-
-
-def _check_process_set(process_set) -> None:
-    if process_set is not None:
-        raise NotImplementedError(
-            "process sets arrive with the negotiated core binding, a later "
-            "slice of the port (ROADMAP Queue 1 item 1)")
-
-
-def _wire_device() -> torch.device:
-    """Where the process group takes tensors: the card under NCCL, the host
-    under gloo (which, over a card's tensors, writes from device pointers
-    and fails)."""
-    rt = basics._get()
-    return rt.device if rt.backend == "nccl" else torch.device("cpu")
-
-
-def _comm_tensor(tensor: torch.Tensor):
-    """The tensor the backend can take, and whether it is a copy to write
-    back: NCCL moves device tensors only, so a CPU tensor (an optimizer's
-    step counter, say) rides a device copy; gloo moves host tensors only."""
-    wire = _wire_device()
-    if tensor.device != wire:
-        return tensor.to(wire), True
-    return tensor, False
-
-
-def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-                     prescale_factor: float = 1.0,
-                     postscale_factor: float = 1.0,
-                     process_set=None) -> Handle:
-    """Reduce ``tensor`` in place across ranks; returns a handle.
-
-    ``Average`` is a sum divided by the world size after the wire, folded
-    into the postscale (the reference's handling)."""
-    _check_process_set(process_set)
-    op = ReduceOp(op)
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum arrives with the negotiated core, a later slice")
-    if op == ReduceOp.AVERAGE and not (tensor.is_floating_point()
-                                       or tensor.is_complex()):
-        raise TypeError(
-            f"Average is not defined on {tensor.dtype} tensors; use op=Sum")
-    if (op in (ReduceOp.SUM, ReduceOp.AVERAGE) and prescale_factor == 1.0
-            and postscale_factor == 1.0):
-        # Device-plane codec auto-dispatch (HOROVOD_WIRE_COMPRESSION
-        # device=<codec>): eligible fp32 tensors ride the quantized ring.
-        codec, min_bytes = _device_codec_defaults()
-        if _codec_enabled(codec) and quantized_collective_eligible(
-                tensor, basics.size(), min_bytes):
-            tensor.copy_(quantized_allreduce(tensor, op, min_bytes, codec))
-            return Handle(None, tensor)
-    return _plain_allreduce_async_(tensor, op, prescale_factor,
-                                   postscale_factor)
-
-
-def _plain_allreduce_async_(tensor: torch.Tensor, op: ReduceOp,
-                            prescale_factor: float = 1.0,
-                            postscale_factor: float = 1.0) -> Handle:
-    comm, copied = _comm_tensor(tensor)
-    if prescale_factor != 1.0:
-        comm.mul_(prescale_factor)
-    work = dist.all_reduce(comm, op=_DIST_OPS[op], async_op=True)
-    post = postscale_factor
-    if op == ReduceOp.AVERAGE:
-        post = post / basics.size()
-
-    def finish():
-        if post != 1.0:
-            comm.mul_(post)
-        if copied:
-            tensor.copy_(comm)
-
-    return Handle(work, tensor, finish)
-
-
-def allreduce_async(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-                    prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0,
-                    process_set=None) -> Handle:
-    """Out-of-place async allreduce: ``tensor`` is left unchanged."""
-    return allreduce_async_(tensor.clone(), op, prescale_factor,
-                            postscale_factor, process_set)
-
-
-def broadcast_async_(tensor: torch.Tensor, root_rank: int,
-                     process_set=None) -> Handle:
-    """Overwrite ``tensor`` with ``root_rank``'s value, in place."""
-    _check_process_set(process_set)
-    if not 0 <= root_rank < basics.size():
-        raise ValueError(f"root_rank {root_rank} outside world of "
-                         f"{basics.size()}")
-    codec, min_bytes = _device_codec_defaults()
-    if _codec_enabled(codec) and quantized_collective_eligible(
-            tensor, basics.size(), min_bytes):
-        tensor.copy_(quantized_broadcast(tensor, root_rank, min_bytes, codec))
-        return Handle(None, tensor)
-    return _plain_broadcast_async_(tensor, root_rank)
-
-
-def _plain_broadcast_async_(tensor: torch.Tensor, root_rank: int) -> Handle:
-    comm, copied = _comm_tensor(tensor)
-    work = dist.broadcast(comm, src=root_rank, async_op=True)
-    finish = (lambda: tensor.copy_(comm)) if copied else None
-    return Handle(work, tensor, finish)
-
-
-def broadcast_async(tensor: torch.Tensor, root_rank: int,
-                    process_set=None) -> Handle:
-    return broadcast_async_(tensor.clone(), root_rank, process_set)
-
-
-def allgather_async(tensor: torch.Tensor, process_set=None) -> Handle:
-    """Concatenate every rank's tensor along dim 0; ranks may differ in
-    dim 0 (sizes are exchanged first, rows padded to the largest).  Under
-    a device codec, equal fp32 shards large enough ride the quantized
-    allgather; every rank sees the same sizes, so every rank decides
-    alike."""
-    _check_process_set(process_set)
-    counts = _gather_rows(tensor)
-    codec, min_bytes = _device_codec_defaults()
-    if _codec_enabled(codec) and _allgather_quantizable(tensor, counts,
-                                                        min_bytes):
-        return Handle(None, _quantized_allgather(tensor, codec))
-    return _plain_allgather_async(tensor, counts)
-
-
-def _gather_rows(tensor: torch.Tensor) -> List[int]:
-    """Every rank's dim 0 (1 for a scalar), in rank order."""
-    rows = torch.tensor([tensor.shape[0] if tensor.dim() else 1],
-                        dtype=torch.int64, device=_wire_device())
-    all_rows = [torch.empty_like(rows) for _ in range(basics.size())]
-    dist.all_gather(all_rows, rows)
-    return [int(r.item()) for r in all_rows]
-
-
-def _plain_allgather_async(tensor: torch.Tensor, counts: List[int]) -> Handle:
-    n = basics.size()
-    src, _ = _comm_tensor(tensor.contiguous())
-    if src.dim() == 0:
-        src = src.reshape(1)
-    top = max(counts)
-    if src.shape[0] < top:
-        pad = src.new_zeros((top - src.shape[0],) + tuple(src.shape[1:]))
-        src = torch.cat([src, pad])
-    parts = [torch.empty_like(src) for _ in range(n)]
-    work = dist.all_gather(parts, src, async_op=True)
-
-    def finish():
-        return torch.cat([p[:c] for p, c in zip(parts, counts)]).to(
-            tensor.device)
-
-    return Handle(work, tensor, finish)
-
-
-def barrier(process_set=None) -> None:
-    _check_process_set(process_set)
-    dist.barrier()
-
-
-def broadcast_object(obj: Any, root_rank: int = 0,
-                     process_set=None) -> Any:
-    """Broadcast a picklable object from ``root_rank``."""
-    _check_process_set(process_set)
-    box = [obj if basics.rank() == root_rank else None]
-    rt = basics._get()
-    dist.broadcast_object_list(
-        box, src=root_rank,
-        device=rt.device if rt.backend == "nccl" else None)
-    return box[0]
-
-
-def allgather_object(obj: Any, process_set=None) -> List[Any]:
-    """Gather one picklable object per rank into a rank-ordered list."""
-    _check_process_set(process_set)
-    out: List[Any] = [None] * basics.size()
-    dist.all_gather_object(out, obj)
-    return out
+def _caller_ring() -> GroupRing:
+    """The world's ring on the caller's thread (``basics.caller_group``)."""
+    return GroupRing(basics.caller_group(), range(basics.size()),
+                     basics.rank(), basics.wire_device())
 
 
 # --- Quantized (block-scaled) collectives ---------------------------------
@@ -319,27 +136,6 @@ def quantized_collective_eligible(x: torch.Tensor, world: int, min_bytes: int,
         return False
     return (world > 1 and x.dtype == torch.float32
             and x.numel() * 4 >= int(min_bytes))
-
-
-class _GroupRing:
-    """This rank's place in the process group and its ring exchange: send a
-    list of tensors to one rank and receive tensors of the same shapes from
-    another, all in one ``batch_isend_irecv``."""
-
-    def __init__(self):
-        self.rank = basics.rank()
-        self.size = basics.size()
-        self._wire = _wire_device()
-
-    def exchange(self, tensors: Sequence[torch.Tensor], dst: int,
-                 src: int) -> List[torch.Tensor]:
-        sends = [t.to(self._wire).contiguous() for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = ([dist.P2POp(dist.isend, t, dst) for t in sends]
-               + [dist.P2POp(dist.irecv, t, src) for t in recvs])
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 
 def _flatten(payload) -> List[torch.Tensor]:
@@ -543,12 +339,16 @@ def quantized_allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     if min_bytes is None:
         min_bytes = _device_codec_defaults()[1]
     world = basics.size()
+    ring = _caller_ring()
     if not quantized_collective_eligible(tensor, world, min_bytes):
-        return _plain_allreduce_async_(tensor.clone(), op).wait()
+        from .device_plane import plain_allreduce
+
+        return plain_allreduce(tensor.reshape(-1).clone(), op,
+                               ring).reshape(tensor.shape)
     codec = _resolve_explicit_codec(codec)
     sched = resolve_device_schedule(world, schedule)
-    out = _quantized_ring_allreduce_sum(_GroupRing(), tensor.reshape(-1),
-                                        codec, sched)
+    out = _quantized_ring_allreduce_sum(ring, tensor.reshape(-1), codec,
+                                        sched)
     qz.note_device_bytes(*qz.ring_bytes(tensor.numel(), world, codec, sched))
     if op == ReduceOp.AVERAGE:
         out = qz._div(out, world)
@@ -561,19 +361,29 @@ def _allgather_quantizable(tensor: torch.Tensor, counts: List[int],
             and quantized_collective_eligible(tensor, len(counts), min_bytes))
 
 
-def _quantized_allgather(tensor: torch.Tensor, codec: str) -> torch.Tensor:
+def _gather_rows(tensor: torch.Tensor, ring: GroupRing) -> List[int]:
+    """Every rank's dim 0 (1 for a scalar), in rank order."""
+    rows = torch.tensor([tensor.shape[0] if tensor.dim() else 1],
+                        dtype=torch.int64, device=ring.wire)
+    all_rows = [torch.empty_like(rows) for _ in range(ring.size)]
+    dist.all_gather(all_rows, rows, group=ring.group)
+    return [int(r.item()) for r in all_rows]
+
+
+def _quantized_allgather(tensor: torch.Tensor, codec: str,
+                         ring: GroupRing) -> torch.Tensor:
     """Each rank encodes its shard once; the encodings are gathered and
     every rank, the owner included, decodes all of them from the same
     bytes."""
-    world = basics.size()
+    world = ring.size
     flat = tensor.reshape(-1)
     length = flat.shape[0]
     payload = qz.quantize(flat, codec)
-    wire = _wire_device()
     gathered = []
     for leaf in _flatten(payload):
-        parts = [torch.empty_like(leaf, device=wire) for _ in range(world)]
-        dist.all_gather(parts, leaf.to(wire))
+        parts = [torch.empty_like(leaf, device=ring.wire)
+                 for _ in range(world)]
+        dist.all_gather(parts, leaf.to(ring.wire), group=ring.group)
         gathered.append([p.to(leaf.device) for p in parts])
     shards = [qz.dequantize(*_unflatten(payload, iter(g[r] for g in gathered)),
                             length, codec) for r in range(world)]
@@ -590,10 +400,13 @@ def quantized_allgather(tensor: torch.Tensor, min_bytes: Optional[int] = None,
     otherwise, or for an ineligible tensor, the plain allgather runs."""
     if min_bytes is None:
         min_bytes = _device_codec_defaults()[1]
-    counts = _gather_rows(tensor)
+    ring = _caller_ring()
+    counts = _gather_rows(tensor, ring)
     if not _allgather_quantizable(tensor, counts, min_bytes):
-        return _plain_allgather_async(tensor, counts).wait()
-    return _quantized_allgather(tensor, _resolve_explicit_codec(codec))
+        from .device_plane import plain_allgather
+
+        return plain_allgather(tensor, counts, ring)
+    return _quantized_allgather(tensor, _resolve_explicit_codec(codec), ring)
 
 
 def _empty_payload(length: int, codec: str, device: torch.device):
@@ -622,12 +435,15 @@ def quantized_broadcast(tensor: torch.Tensor, root_rank: int,
                          f"{basics.size()}")
     if min_bytes is None:
         min_bytes = _device_codec_defaults()[1]
+    ring = _caller_ring()
     if not quantized_collective_eligible(tensor, basics.size(), min_bytes):
-        return _plain_broadcast_async_(tensor.clone(), root_rank).wait()
+        from .device_plane import plain_broadcast
+
+        return plain_broadcast(tensor.clone(), root_rank, ring)
     codec = _resolve_explicit_codec(codec)
     flat = tensor.reshape(-1)
     length = flat.shape[0]
-    wire = _wire_device()
+    wire = ring.wire
     if basics.rank() == root_rank:
         payload = qz.quantize(flat, codec)
         bufs = [leaf.to(wire) for leaf in _flatten(payload)]
@@ -636,7 +452,7 @@ def quantized_broadcast(tensor: torch.Tensor, root_rank: int,
         bufs = [torch.empty_like(leaf, device=wire)
                 for leaf in _flatten(payload)]
     for buf in bufs:
-        dist.broadcast(buf, src=root_rank)
+        dist.broadcast(buf, src=root_rank, group=ring.group)
     payload = _unflatten(payload, iter(b.to(flat.device) for b in bufs))
     out = qz.dequantize(payload[0], payload[1], length, codec)
     qz.note_device_bytes(length * 4, qz.encoded_nbytes(length, codec))

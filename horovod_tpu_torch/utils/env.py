@@ -1,12 +1,15 @@
-"""Environment parsing for the identity and rendezvous of a rank, and for
-the device plane's codec.
+"""Environment parsing for the identity and rendezvous of a rank, the
+negotiation core and the device plane's codec.
 
 Own copy of the part of ``horovod_tpu/utils/env.py`` this package needs
-(``Config.from_env``'s rank, size and rendezvous fields; the
-``HOROVOD_WIRE_COMPRESSION``, ``HOROVOD_DEVICE_SCHEDULE`` and
-``HOROVOD_WIRE_COMPRESSION_MIN_BYTES`` parsers), under the same variable
-names, so a launcher that starts ranks of the JAX package starts ranks of
-this one unchanged.  ``HOROVOD_GLOO_TIMEOUT_SECONDS`` is the reference
+(``Config.from_env``'s identity, rendezvous and core fields -- every value
+``hvd_init`` takes -- and the ``HOROVOD_WIRE_COMPRESSION``,
+``HOROVOD_DEVICE_SCHEDULE`` and ``HOROVOD_WIRE_COMPRESSION_MIN_BYTES``
+parsers), under the same variable names and defaults, so a launcher that
+starts ranks of the JAX package starts ranks of this one unchanged.  The
+core's observability planes (timeline, metrics, flight recorder, step
+trace) are off unless their variables turn them on: the port has no public
+API over them yet.  ``HOROVOD_GLOO_TIMEOUT_SECONDS`` is the reference
 Horovod's name for how long a collective waits for its peers, and
 ``HOROVOD_GPU_OPERATIONS`` its choice of the library that runs collectives
 on GPU tensors (``NCCL``, the default, or ``GLOO``).
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 from .logging import get_logger
 
@@ -29,6 +33,27 @@ DEVICE_WIRE_COMPRESSION_CODECS = ("none", "int8", "int4", "int8g")
 DEVICE_SCHEDULES = ("auto", "ring", "bidi", "torus")
 # Payload floor below which a quantized collective demotes to the plain one.
 DEFAULT_WIRE_COMPRESSION_MIN_BYTES = 1 << 16
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, as the reference
+DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_STALL_WARNING_S = 60.0
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
+
+
+def get_float(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val is None or not val.strip():
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
 
 
 def get_int(name: str, default: int) -> int:
@@ -43,13 +68,16 @@ def get_int(name: str, default: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Identity and rendezvous of this rank, and the device plane's codec
-    configuration, read once per ``hvd.init()``."""
+    """Identity and rendezvous of this rank, the negotiation core's
+    settings and the device plane's codec configuration, read once per
+    ``hvd.init()``."""
 
     rank: int = 0
     size: int = 1
     local_rank: int = 0
     local_size: int = 1
+    cross_rank: int = 0
+    cross_size: int = 1
     rendezvous_addr: str = "127.0.0.1"
     rendezvous_port: int = 0
     timeout_s: int = DEFAULT_GLOO_TIMEOUT_S
@@ -57,6 +85,35 @@ class Config:
     wire_compression_device: str = "none"
     wire_compression_min_bytes: int = DEFAULT_WIRE_COMPRESSION_MIN_BYTES
     device_schedule: str = "auto"
+    # The negotiation core (hvd_init's arguments).  ``controller`` is auto
+    # (socket above one rank), local, socket, or python for the pure-Python
+    # core; the core's own rendezvous port is chosen by rank 0 at init and
+    # shared through the process group's store.
+    controller: str = "auto"
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    hierarchical_allreduce: bool = False
+    # Host-plane codec of the C++ ring (HOROVOD_WIRE_COMPRESSION's host=).
+    wire_compression: str = "none"
+    timeline_path: Optional[str] = None
+    timeline_mark_cycles: bool = False
+    metrics_enabled: bool = False
+    metrics_file: Optional[str] = None
+    metrics_interval_s: float = 10.0
+    flight_recorder_enabled: bool = False
+    flight_recorder_slots: int = 4096
+    postmortem_dir: Optional[str] = None
+    log_level: str = "warning"
+    stall_check_enabled: bool = True
+    stall_warning_s: float = DEFAULT_STALL_WARNING_S
+    stall_shutdown_s: float = 0.0  # 0 = never shut down
+    autopilot_port: int = 0
+    step_trace_enabled: bool = False
+    step_trace_slots: int = 256
+    force_pure_python: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -66,6 +123,8 @@ class Config:
             size=get_int("HOROVOD_SIZE", 1),
             local_rank=get_int("HOROVOD_LOCAL_RANK", 0),
             local_size=get_int("HOROVOD_LOCAL_SIZE", 1),
+            cross_rank=get_int("HOROVOD_CROSS_RANK", 0),
+            cross_size=get_int("HOROVOD_CROSS_SIZE", 1),
             # Same variable names the reference's Gloo rendezvous uses.
             rendezvous_addr=env.get(
                 "HOROVOD_GLOO_RENDEZVOUS_ADDR",
@@ -79,6 +138,41 @@ class Config:
             wire_compression_device=get_wire_compression_planes()[1],
             wire_compression_min_bytes=get_wire_compression_min_bytes(),
             device_schedule=get_device_schedule(),
+            controller=env.get("HOROVOD_CONTROLLER", "auto").lower(),
+            fusion_threshold_bytes=get_int("HOROVOD_FUSION_THRESHOLD",
+                                           DEFAULT_FUSION_THRESHOLD),
+            cycle_time_ms=get_float("HOROVOD_CYCLE_TIME",
+                                    DEFAULT_CYCLE_TIME_MS),
+            cache_capacity=get_int("HOROVOD_CACHE_CAPACITY",
+                                   DEFAULT_CACHE_CAPACITY),
+            autotune=get_bool("HOROVOD_AUTOTUNE", False),
+            autotune_log=env.get("HOROVOD_AUTOTUNE_LOG"),
+            hierarchical_allreduce=get_bool("HOROVOD_HIERARCHICAL_ALLREDUCE",
+                                            False),
+            wire_compression=get_wire_compression_planes()[0],
+            timeline_path=env.get("HOROVOD_TIMELINE"),
+            timeline_mark_cycles=get_bool("HOROVOD_TIMELINE_MARK_CYCLES",
+                                          False),
+            metrics_enabled=get_bool("HOROVOD_METRICS",
+                                     bool(env.get("HOROVOD_METRICS_FILE"))),
+            metrics_file=env.get("HOROVOD_METRICS_FILE"),
+            metrics_interval_s=get_float("HOROVOD_METRICS_INTERVAL", 10.0),
+            flight_recorder_enabled=get_bool("HOROVOD_FLIGHT_RECORDER",
+                                             False),
+            flight_recorder_slots=get_int("HOROVOD_FLIGHT_RECORDER_SLOTS",
+                                          4096),
+            postmortem_dir=env.get("HOROVOD_POSTMORTEM_DIR"),
+            log_level=env.get("HOROVOD_LOG_LEVEL", "warning").lower(),
+            stall_check_enabled=not get_bool("HOROVOD_STALL_CHECK_DISABLE",
+                                             False),
+            stall_warning_s=get_float("HOROVOD_STALL_CHECK_TIME_SECONDS",
+                                      DEFAULT_STALL_WARNING_S),
+            stall_shutdown_s=get_float(
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            autopilot_port=get_int("HOROVOD_AUTOPILOT_PORT", 0),
+            step_trace_enabled=get_bool("HOROVOD_STEP_TRACE", False),
+            step_trace_slots=get_int("HOROVOD_STEP_TRACE_SLOTS", 256),
+            force_pure_python=get_bool("HVD_TPU_PURE_PY", False),
         )
 
 
@@ -121,8 +215,8 @@ def get_wire_compression_planes() -> "tuple":
     A bare codec (``int8``) sets the host plane only; comma-separated
     ``plane=codec`` assignments (``host=bf16,device=int8``) set the planes
     they name.  Unset, empty, "0", "off", "false" and "no" mean none;
-    anything unrecognised warns and stays none.  Only the device plane is
-    read by this package: the host ring arrives with the negotiated core."""
+    anything unrecognised warns and stays none.  The host codec runs in
+    the C++ core's ring, the device codec in the quantized ring."""
     raw = os.environ.get("HOROVOD_WIRE_COMPRESSION", "")
     val = raw.strip().lower()
     host, device = "none", "none"

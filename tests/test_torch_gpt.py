@@ -135,7 +135,8 @@ def test_conversion_round_trips(setup):
     _assert_tree_close(back, params["params"], 0.0)
 
 
-def test_two_distributed_steps_match_jax_trainer(setup, hvd_single):
+def test_two_distributed_steps_match_jax_trainer(setup, hvd_single,
+                                                 monkeypatch):
     """Two DistributedOptimizer(AdamW) steps of the port at world 1 on the
     full batch against the JAX trainer pattern: optax.adamw inside
     DistributedOptimizer under shard_map over a 2-device CPU mesh, each
@@ -147,7 +148,11 @@ def test_two_distributed_steps_match_jax_trainer(setup, hvd_single):
     ``_tree_allreduce`` reads an all-invariant tree as "tracking off" and
     sums them again, so the averaged gradient comes out world-size times
     the mean (ROADMAP Queue 3).  AdamW hides a uniform scale except where
-    |g| is near eps, which is where this test caught it."""
+    |g| is near eps, which is where this test caught it.
+
+    The port runs on its pure-Python core here: the reference's native
+    core is up in this process, and the two libraries are never loaded
+    into one process together."""
     ids, params = setup
     jhvd = hvd_single
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("dp",))
@@ -174,6 +179,7 @@ def test_two_distributed_steps_match_jax_trainer(setup, hvd_single):
         jparams, jstate, jloss = step(jparams, jstate, jnp.asarray(ids))
         jlosses.append(float(jloss))
 
+    monkeypatch.setenv("HOROVOD_CONTROLLER", "python")
     thvd.init(device="cpu")
     try:
         tmodel = _torch_model(params)

@@ -1,6 +1,7 @@
 """The port stands alone: ``horovod_tpu_torch`` and ``chip_smoke.py`` import
-neither jax nor the JAX package ``horovod_tpu``, and ``hvd.init()`` runs on
-the card unless the caller asks for the CPU."""
+neither jax nor the JAX package ``horovod_tpu``, ``hvd.init()`` starts the
+port's own native core, and it runs on the card unless the caller asks for
+the CPU."""
 
 import ast
 import os
@@ -35,6 +36,14 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     import chip_smoke  # noqa: F401
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.context import HorovodContext
+    hvd.init(device="cpu")
+    core = HorovodContext.instance().core
+    import torch
+    total = hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist()
+    print(core.name, core._lib._name, total)
+    hvd.shutdown()
     leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
                     and (m == "horovod_tpu" or m.startswith("horovod_tpu.")
                          or m.split(".")[0] in ("jax", "flax", "optax")))
@@ -50,7 +59,12 @@ def test_imports_with_jax_and_reference_blocked():
          _BLOCKED_IMPORT.replace("REPO_DIR", repr(str(REPO)))],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    count, leaked, names = out.stdout.split(" ", 2)
+    started, listed = out.stdout.splitlines()[-2:]
+    core, lib, total = started.split(" ", 2)
+    assert core == "native" and total == "[1.0, 1.0]"
+    assert Path(lib).parent == PKG / "_build"
+    assert Path(lib).name.startswith("libhvd_core-")
+    count, leaked, names = listed.split(" ", 2)
     assert int(count) >= 17  # every module of the package was imported
     assert leaked == "[]"
     for module in ("ops.quantize", "ops.collectives", "optimizer",

@@ -31,7 +31,11 @@ import torch
 
 WORLD = 4
 JOIN_TIMEOUT_S = 120
-MIN_BYTES = 4096
+# One byte above the negotiated device plane's smallest bucket (1024 fp32,
+# ops/device_plane.py:bucket_len), whose codec floor is judged on the
+# padded bucket as in the reference: a bucket of the small leaves below
+# stays under the floor and takes the plain collective.
+MIN_BYTES = 4097
 LENGTH = 2 * 4096 + 37           # ragged: two int8g groups and a short block
 CODECS = ("int8", "int4", "int8g")
 SCHEDULES = ("ring", "bidi", "torus")
@@ -78,7 +82,10 @@ def _worker(rank, port, outdir):
         HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(WORLD),
         HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
         HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
-        HOROVOD_GLOO_TIMEOUT_SECONDS="60", **ENV)
+        HOROVOD_GLOO_TIMEOUT_SECONDS="60", **ENV,
+        # The native core's host ring over TCP: no /dev/shm region, which
+        # tests of the JAX package running meanwhile look for.
+        HOROVOD_SHM_DISABLE="1")
     # A device codec for the auto-dispatch cases below; every other call
     # names its codec or demotes.  hvd.init() reads it once.
     os.environ["HOROVOD_WIRE_COMPRESSION"] = "device=int8"
@@ -105,10 +112,13 @@ def _worker(rank, port, outdir):
         res[f"bc/{codec}"] = hvd.quantized_broadcast(g, root_rank=2,
                                                      codec=codec)
     # Demotion: half precision and tensors under MIN_BYTES take the plain
-    # collectives (held against the plain path itself, which the device
-    # codec does not reach).
+    # collectives (held against the plain collective itself, the device
+    # plane's executor, which the device codec does not reach).
+    from horovod_tpu_torch.ops.device_plane import bucket_len, plain_allreduce
+
     def plain(t, op):
-        return col._plain_allreduce_async_(t.clone(), op).wait()
+        return plain_allreduce(t.reshape(-1).clone(), op,
+                               col._caller_ring()).reshape(t.shape)
 
     small = x[:MIN_BYTES // 4 - 1]
     res["demote/fp16"] = (hvd.quantized_allreduce(x.half()),
@@ -117,11 +127,14 @@ def _worker(rank, port, outdir):
                            plain(small, hvd.Average))
     res["demote/ragged_gather"] = hvd.quantized_allgather(g[:rank + 1])
     res["plain/small_sum"] = plain(small, hvd.Sum)
-    # Auto-dispatch of the plain entry points under the device codec.
+    # The negotiated entry points under the device codec: an fp32 allreduce
+    # bucket at or above the floor rides the quantized ring, padded to its
+    # bucket length; allgather and broadcast are exact.
     res["auto/allreduce"] = hvd.allreduce(x, op=hvd.Sum)
     res["auto/allgather"] = hvd.allgather(g)
     res["auto/broadcast"] = hvd.broadcast(g, root_rank=2)
     res["auto/small"] = hvd.allreduce(small, op=hvd.Sum)
+    res["auto/bucket_len"] = bucket_len(LENGTH)
     # Error feedback: SGD on a linear loss sum(p * G[rank, step]), so each
     # rank's gradient is exactly its G.
     for codec in CODECS:
@@ -268,6 +281,15 @@ def _collectives_reference():
                jnp.asarray(inp["gather"]))
     for i, codec in enumerate(CODECS):
         out[f"ag/{codec}"], out[f"bc/{codec}"] = ga[2 * i], ga[2 * i + 1]
+
+    # The device plane's fused bucket: the input zero-padded to its bucket
+    # length (LENGTH -> 10240), through the reference device plane's ring.
+    padded = np.zeros((WORLD, 10240), np.float32)
+    padded[:, :LENGTH] = inp["x"]
+    out["bucket/int8"] = _smap(
+        lambda xl: jcl._quantized_ring_allreduce_sum(
+            xl[0], "hvd", None, "int8", "ring")[None],
+        (P("hvd"),), P("hvd"), jnp.asarray(padded))
     return out
 
 
@@ -363,16 +385,23 @@ def test_demotion_is_the_plain_collective(ranks):
         _assert_bitwise(r["demote/ragged_gather"], want, "ragged gather")
 
 
-def test_auto_dispatch_under_device_codec(ranks):
-    for r in ranks:
-        _assert_bitwise(r["auto/allgather"], r["ag/int8"].numpy(),
-                        "auto allgather")
-        _assert_bitwise(r["auto/broadcast"], r["bc/int8"].numpy(),
-                        "auto broadcast")
+def test_auto_dispatch_under_device_codec(ranks, reference):
+    """hvd.allreduce under HOROVOD_WIRE_COMPRESSION=device=int8 is the
+    negotiated device plane's quantized ring on the bucket zero-padded to
+    its length, bit for bit the reference device plane's; under the floor
+    the plain Sum runs; allgather and broadcast are exact."""
+    inp = _inputs()
+    bucket = np.asarray(reference.result()["bucket/int8"])
+    for rank, r in enumerate(ranks):
+        assert r["auto/bucket_len"] == bucket.shape[1]
         # The configured schedule (ENV) is ring.
-        _assert_bitwise(r["auto/allreduce"], r["ar/int8/ring/sum"].numpy(),
+        _assert_bitwise(r["auto/allreduce"], bucket[rank][:LENGTH],
                         "auto allreduce")
-        # Under MIN_BYTES the plain Sum runs.
+        _assert_bitwise(r["auto/allgather"],
+                        inp["gather"].reshape((-1,) + GATHER_SHAPE[1:]),
+                        "auto allgather")
+        _assert_bitwise(r["auto/broadcast"], inp["gather"][2],
+                        "auto broadcast")
         _assert_bitwise(r["auto/small"], r["plain/small_sum"].numpy(),
                         "auto small")
 
