@@ -81,8 +81,34 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    after every step, and each step's first quantized bucket replayed on
    the CPU from both ranks' inputs, bitwise.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+8. The CNN harness (``cnn``), world 1 over NCCL, through
+   ``horovod_tpu_torch.examples.cnn_benchmark``: ResNet-50 at 224 px,
+   batch 64, bf16 activations and fp32 parameters, BatchNorm synced over
+   the ranks, ``DistributedOptimizer(SGD(0.01, momentum=0.9))``: one
+   warm-up and five timed steps (finite, falling loss; images/s, median
+   step ms, peak memory), one more step profiled (device ms for
+   convolution, BatchNorm, elementwise, optimizer; the idle share); then
+   three steps replicated and three with ZeRO-1 from the same weights
+   under cuDNN's deterministic algorithms, whose parameters must be equal
+   to the bit; then the MNIST MLP trainer (two epochs) and VGG-16 and
+   Inception V3 (299 px) for two steps each.
+   No K1-K6 kernel may launch on these paths (the JAX package's CNNs reach
+   no ``pallas_call``).
+9. BERT-Large pretraining (``bert``), world 1 over NCCL, through
+   ``examples.bert_pretraining``: 32 x 128 tokens, AdamW(1e-4) with
+   ``Compression.fp16``, one warm-up and five timed steps (loss,
+   sequences/s, step ms, peak memory), one more profiled; dense attention,
+   so again no K1-K6 launch.
+10. The CNN harness at world 2 (``cnn_world2``), two ranks on ``cuda:0``
+   as in 6: ResNet-50 with synced BatchNorm, batch 16 per rank, two steps
+   replicated and two with ZeRO-1.  Parameters and BatchNorm statistics
+   bitwise equal across ranks; the first step's statistics held against
+   a one-process replay on the two ranks' 32 images (``BN_REPLAY_TOL``);
+   the ZeRO-1 parameters held to the replicated run's (``ZERO_W2_TOL``);
+   each rank's optimizer-state bytes printed beside the replicated run's.
+
+Each phase prints its seconds.  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1549,6 +1575,489 @@ def spine_world2(seed, gpu_operations):
     return reports[0], reports[1], replayed
 
 
+# ---------------------------------------------------------------------------
+# The CNN and BERT data-parallel paths.  The JAX package's ResNet, VGG,
+# Inception, MLP and dense BERT reach no pallas_call, so no K1-K6 kernel
+# may launch on them.
+# ---------------------------------------------------------------------------
+
+CNN_BATCH = 64          # the reference harness's default batch per chip
+CNN_STEPS = 5           # timed, after one warm-up step
+ZERO_STEPS = 3          # the ZeRO-1 run and its replicated twin
+CNN_SHORT_STEPS = 2     # VGG-16 and Inception V3, after one warm-up step
+CNN_W2_BATCH = 16       # per rank, two ranks on the one card
+CNN_W2_STEPS = 2
+BERT_BATCH = 32
+BERT_SEQ = 128          # the reference's default
+BERT_STEPS = 5
+# The synced BatchNorm statistics of two ranks of 16 images against one
+# process's BatchNorm over the 32: the same sums, but cuDNN may pick other
+# algorithms for batches of 16 and 32, and a bf16 convolution output that
+# differs by one rounding (2^-8) moves a layer's statistics and every
+# layer after it; held per layer to this share of its largest magnitude.
+BN_REPLAY_TOL = 5e-3
+# ZeRO-1 against the replicated optimizer: both reduce the same fp32 sums
+# and step the same SGD arithmetic, so at world 1 under cuDNN's
+# deterministic algorithms the parameters must be equal to the bit.  At
+# world 2 they are held to this share of the largest update the replicated
+# run made (its gradients cross gloo in buckets whose fusion may differ
+# from the sharded run's single reduce-scatter only in where the sums are
+# rounded, which is nowhere for a sum of two).
+ZERO_W2_TOL = 1e-3
+# Kernel-name rules for the step breakdowns; BatchNorm's kernels are the
+# ones inside its record_function ranges.
+STEP_CATEGORIES = (
+    ("nccl", ("nccl",)),
+    ("optimizer", ("multi_tensor", "fused_sgd", "fused_adam")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                     "winograd", "precomputed")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "wgmma")),
+)
+
+
+def kernel_launches(fa, qz) -> dict:
+    return {**fa.LAUNCHES, **qz.LAUNCHES}
+
+
+def categorize(prof, annotation_prefix: str = "batch_norm.") -> dict:
+    """Device ms by category from a torch.profiler trace: kernels that run
+    inside a ``record_function`` range named ``annotation_prefix...`` (on
+    the device timeline) form their own category, the rest go by name
+    (``STEP_CATEGORIES``, else ``elementwise_and_other``)."""
+    ranges, kernels = [], []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if getattr(evt, "is_user_annotation", False):
+            if evt.name.startswith(annotation_prefix):
+                ranges.append(span)
+        else:
+            kernels.append((evt.name, span))
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    cats = {}
+    import bisect
+
+    for name, (start, end) in kernels:
+        i = bisect.bisect_right(starts, start) - 1
+        if i >= 0 and ranges[i][0] <= start and end <= ranges[i][1]:
+            cat = "batch_norm"
+        else:
+            low = name.lower()
+            cat = next((c for c, keys in STEP_CATEGORIES
+                        if any(k in low for k in keys)),
+                       "elementwise_and_other")
+        cats[cat] = cats.get(cat, 0.0) + (end - start) / 1e3
+    return {"by_category_ms": cats, "annotated_ranges": len(ranges)}
+
+
+def profile_train_step(step) -> dict:
+    """One more train step under torch.profiler: device ms by category
+    (``categorize``), busy ms and the step's profiled wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step().item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = device_kernels(prof)
+    if not per_kernel:
+        raise AssertionError("torch.profiler recorded no device time")
+    busy = sum(ms for ms, _ in per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    # Where the host's time goes: operators by self CPU time.
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"profiled_wall_ms": wall_ms, "device_ms": busy,
+            **categorize(prof),
+            "top_kernels_ms": [[n[:80], ms, k] for n, (ms, k) in top],
+            "top_host_ops_self_ms": [[e.key[:60], e.self_cpu_time_total / 1e3,
+                                      e.count] for e in host[:10]]}
+
+
+def check_losses(what, losses, falling=True):
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    if falling and not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall {losses}")
+
+
+def trainer_report(res, batch, breakdown) -> dict:
+    steady = res["step_ms_median"]
+    if isinstance(breakdown.get("device_ms"), float):
+        breakdown["idle_share"] = max(0.0, 1.0 - breakdown["device_ms"] /
+                                      steady)
+    return {"losses": res["losses"], "step_ms": res["step_ms"],
+            "median_step_ms": steady, "batch": batch,
+            "breakdown": breakdown}
+
+
+def params_of(model) -> dict:
+    return {n: p.detach().float().cpu().clone()
+            for n, p in model.named_parameters()}
+
+
+# The zoo BatchNorm's CUDA passes (PyTorch's batch-norm kernels) against
+# its plain fp32 arithmetic on the same bf16 inputs: the fp32 statistics
+# and parameter gradients sum the same values in another order; the bf16
+# output and input gradient round values that differ by that much, so an
+# element may move by one bf16 ulp (2^-8 of its size).
+BN_CHECK_TOL = {"mean": 1e-4, "var": 1e-4, "grad_weight": 1e-4,
+                "grad_bias": 1e-4, "out": 2 ** -7, "grad_input": 2 ** -7}
+BN_CHECK_SHAPES = ((64, 64, 112, 112), (64, 2048, 7, 7))  # ResNet-50's ends
+
+
+def batch_norm_check(seed) -> dict:
+    """Each error as max |cuda - plain| / max |plain|, at the first and the
+    last BatchNorm shape of ResNet-50 at batch 64; and device ms of one
+    forward and backward of each at the first."""
+    from horovod_tpu_torch import sync_batch_norm as sbn
+
+    eps = 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    out = {}
+    for shape in BN_CHECK_SHAPES:
+        c, cl = shape[1], torch.channels_last
+
+        def rand(*s, scale=1.0, shift=0.0):
+            return torch.randn(s, generator=gen, device="cuda") * scale + \
+                shift
+
+        x = rand(*shape, scale=2.0, shift=0.5).to(torch.bfloat16) \
+            .contiguous(memory_format=cl)
+        dy = rand(*shape).to(torch.bfloat16).contiguous(memory_format=cl)
+        w, b = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.1)
+
+        def native():
+            xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+            o, mean, var, _ = sbn._BatchNormFn.apply(xr, wr, br, eps, None,
+                                                     None)
+            o.backward(dy)
+            return {"out": o, "mean": mean, "var": var,
+                    "grad_input": xr.grad, "grad_weight": wr.grad,
+                    "grad_bias": br.grad}
+
+        def plain():
+            xf = x.float()
+            dims = [0, 2, 3]
+            count = torch.full((1,), float(x.numel() // c), device="cuda")
+            mean, var, invstd, count = sbn._stats_from_sums(
+                torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]), c,
+                eps)
+            sums, gw, gb = sbn.plain_backward_sums(dy, x, mean, invstd)
+            return {"out": sbn.plain_forward(x, w, b, mean, invstd),
+                    "mean": mean, "var": var,
+                    "grad_input": sbn.plain_backward_input(
+                        dy, x, mean, invstd, w, sums, count),
+                    "grad_weight": gw, "grad_bias": gb}
+
+        got, want = native(), plain()
+        errs = {k: (got[k].float() - want[k].float()).abs().max().item() /
+                max(want[k].float().abs().max().item(), 1e-30)
+                for k in want}
+        bad = {k: e for k, e in errs.items() if not e <= BN_CHECK_TOL[k]}
+        if bad:
+            raise AssertionError(f"BatchNorm CUDA passes vs plain at "
+                                 f"{shape}: {bad}")
+        rep = {"rel_err": errs}
+        if shape == BN_CHECK_SHAPES[0]:
+            rep["native_ms"] = timed(native, iters=10)
+            rep["plain_ms"] = timed(plain, iters=10)
+        out["x".join(map(str, shape))] = rep
+    return {"tol": BN_CHECK_TOL, **out}
+
+
+def cnn_phase(hvd, fa, qz, seed) -> dict:
+    """The CNN harness at world 1 over NCCL: ResNet-50 at 224 px, batch
+    64, bf16 activations, DistributedOptimizer(SGD(0.01, momentum 0.9)):
+    one warm-up and five timed steps, one more profiled; then three steps
+    replicated and three with ZeRO-1 from the same weights under cuDNN's
+    deterministic algorithms, the parameters compared; then the MNIST MLP
+    for two epochs, and VGG-16 and Inception V3 (299 px) for two steps
+    each."""
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.examples import cnn_benchmark, mnist_mlp
+
+    hvd.init()
+    out = {}
+    try:
+        if hvd.backend() != "nccl" or \
+                HorovodContext.instance().core.name != "native":
+            raise AssertionError("the CNN phase needs NCCL and the native "
+                                 "core")
+        out["batch_norm_check"] = batch_norm_check(seed)
+        torch.cuda.empty_cache()
+        base = ["--batch-per-chip", str(CNN_BATCH), "--seed", str(seed)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        qz.reset_launch_counts()
+        res = cnn_benchmark.main(["--model", "resnet50", "--steps",
+                                  str(CNN_STEPS)] + base)
+        launches = kernel_launches(fa, qz)
+        check_losses("resnet50", res["losses"])
+        out["resnet50"] = {
+            **trainer_report(res, CNN_BATCH,
+                             profile_train_step(res["step"])),
+            "images_per_sec": res["images_per_sec_per_chip"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "tpu_kernel_launches": launches}
+        del res
+        torch.cuda.empty_cache()
+        out["zero1"] = zero1_world1(cnn_benchmark, base)
+        # The first Horovod script, examples/jax_mnist_mlp.py's port: two
+        # epochs of the MLP on synthetic MNIST-shaped data.
+        fa.reset_launch_counts()
+        qz.reset_launch_counts()
+        t0 = time.perf_counter()
+        mnist = mnist_mlp.main(["--seed", str(seed)])
+        check_losses("mnist_mlp", mnist["epoch_losses"], falling=False)
+        out["mnist_mlp"] = {"epoch_losses": mnist["epoch_losses"],
+                            "seconds": time.perf_counter() - t0,
+                            "tpu_kernel_launches": kernel_launches(fa, qz)}
+        del mnist
+        for model, steps in (("vgg16", CNN_SHORT_STEPS),
+                             ("inception3", CNN_SHORT_STEPS)):
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            qz.reset_launch_counts()
+            res = cnn_benchmark.main(["--model", model, "--steps",
+                                      str(steps)] + base)
+            check_losses(model, res["losses"], falling=False)
+            out[model] = {"losses": res["losses"],
+                          "step_ms": res["step_ms"],
+                          "images_per_sec": res["images_per_sec_per_chip"],
+                          "peak_mem_gb":
+                              torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "tpu_kernel_launches": kernel_launches(fa, qz)}
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+    for name, rep in out.items():
+        if any(rep.get("tpu_kernel_launches", {}).values()):
+            raise AssertionError(f"{name} launched a TPU kernel's port: "
+                                 f"{rep['tpu_kernel_launches']}")
+    return out
+
+
+def zero1_world1(cnn_benchmark, base) -> dict:
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, extra in (("replicated", []),
+                           ("sharded", ["--shard-optimizer"])):
+            t = cnn_benchmark.setup(["--model", "resnet50"] + base + extra)
+            losses = [t["step"]().item() for _ in range(ZERO_STEPS)]
+            opt = t["optimizer"]
+            runs[key] = {"losses": losses, "params": params_of(t["model"]),
+                         "bytes": opt.shard_bytes() if key == "sharded"
+                         else {"state": optimizer_state_bytes(opt)}}
+            del t, opt
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rep, sh = runs["replicated"], runs["sharded"]
+    diff = max((rep["params"][n] - sh["params"][n]).abs().max().item()
+               for n in rep["params"])
+    if diff != 0.0:
+        raise AssertionError(f"ZeRO-1 parameters differ from the replicated "
+                             f"run's by up to {diff}")
+    check_losses("resnet50 zero1", sh["losses"])
+    return {"steps": ZERO_STEPS, "bitwise_equal": True,
+            "losses_replicated": rep["losses"], "losses_sharded": sh["losses"],
+            "bytes_replicated": rep["bytes"], "bytes_sharded": sh["bytes"]}
+
+
+def optimizer_state_bytes(opt) -> int:
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+
+
+def bert_phase(hvd, fa, qz, seed) -> dict:
+    """BERT-Large pretraining at world 1 over NCCL: 32 x 128 tokens,
+    DistributedOptimizer(AdamW(1e-4), compression=Compression.fp16), one
+    warm-up and five timed steps, one more profiled."""
+    from horovod_tpu_torch.examples import bert_pretraining
+
+    hvd.init()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        qz.reset_launch_counts()
+        res = bert_pretraining.main(
+            ["--large", "--batch-per-chip", str(BERT_BATCH), "--seq-len",
+             str(BERT_SEQ), "--steps", str(BERT_STEPS), "--seed", str(seed)])
+        launches = kernel_launches(fa, qz)
+        check_losses("bert_large", res["losses"])
+        out = {**trainer_report(res, BERT_BATCH,
+                                profile_train_step(res["step"])),
+               "seq": BERT_SEQ,
+               "sequences_per_sec": res["sequences_per_sec_per_chip"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "parameters": sum(p.numel() for p in res["model"].parameters()),
+               "tpu_kernel_launches": launches}
+        del res
+        torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+    if any(launches.values()):
+        raise AssertionError(f"BERT launched a TPU kernel's port: {launches}")
+    return out
+
+
+def cnn_world2_rank(rank, port, seed, gpu_operations, tmpdir, queue):
+    """One of two ranks on ``cuda:0``: ResNet-50 with synced BatchNorm,
+    replicated and then with ZeRO-1; puts its report on ``queue``."""
+    import traceback
+
+    os.environ.update(
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+        HOROVOD_GPU_OPERATIONS=gpu_operations)
+    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_DEVICE_SCHEDULE",
+                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(cnn_world2_work(rank, seed, tmpdir))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def cnn_world2_work(rank, seed, tmpdir):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import cnn_benchmark
+    from horovod_tpu_torch.sync_batch_norm import BatchNorm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    hvd.init(device="cuda:0")  # both ranks on the one card
+    rep = {"rank": rank, "backend": hvd.backend(), "device": str(hvd.device())}
+    try:
+        argv = ["--model", "resnet50", "--batch-per-chip", str(CNN_W2_BATCH),
+                "--seed", str(seed)]
+        params = {}
+        for key, extra in (("replicated", []),
+                           ("sharded", ["--shard-optimizer"])):
+            t = cnn_benchmark.setup(argv + extra)
+            init = params_of(t["model"]) if key == "replicated" else None
+            losses, step_ms = [], []
+            for i in range(CNN_W2_STEPS):
+                t0 = time.perf_counter()
+                losses.append(hvd.allreduce(t["step"]().detach(),
+                                            name="w2.loss").item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and key == "replicated":
+                    stats = {n: b.detach().cpu().clone() for n, b in
+                             t["model"].named_buffers()}
+            check_losses(f"world-2 {key}", losses, falling=False)
+            params[key] = params_of(t["model"])
+            opt = t["optimizer"]
+            rep[key] = {
+                "losses": losses, "step_ms": step_ms,
+                "params_digest": digest(torch.cat(
+                    [p.reshape(-1) for p in params[key].values()])),
+                "bytes": opt.shard_bytes() if key == "sharded"
+                else {"state": optimizer_state_bytes(opt)},
+                "synced_bn_layers": sum(isinstance(m, BatchNorm) and m.sync
+                                        for m in t["model"].modules())}
+            if key == "replicated":
+                rep[key]["stats_digest"] = digest(torch.cat(
+                    [b.reshape(-1).float() for b in stats.values()]))
+                rep[key]["buffers_digest"] = digest(torch.cat(
+                    [b.detach().reshape(-1).float()
+                     for b in t["model"].buffers()]))
+                update = max((params[key][n] - init[n]).abs().max().item()
+                             for n in init)
+            del t, opt
+            torch.cuda.empty_cache()
+        diff = max((params["replicated"][n] - params["sharded"][n])
+                   .abs().max().item() for n in params["sharded"])
+        rep["zero1_vs_replicated_max_abs"] = diff
+        rep["replicated_max_update"] = update
+        if rank == 0:
+            torch.save({"stats": stats}, os.path.join(tmpdir, "stats.pt"))
+    finally:
+        hvd.shutdown()
+    return rep
+
+
+def cnn_world2_phase(seed, gpu_operations) -> dict:
+    """Two ranks of the CNN harness on the one card (``cnn_world2_rank``),
+    then a one-process replay of the first step's BatchNorm statistics on
+    the two ranks' 32 images."""
+    import tempfile
+
+    from horovod_tpu_torch.examples import cnn_benchmark
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        reports, codes = spawn_pair(cnn_world2_rank,
+                                    (seed, gpu_operations, tmpdir), 900)
+        for rep in reports.values():
+            if "error" in rep:
+                raise AssertionError(f"cnn world-2 rank {rep['rank']} "
+                                     f"failed:\n{rep['error']}")
+        if codes != [0, 0]:
+            raise AssertionError(f"cnn world-2 exit codes {codes}")
+        stats = torch.load(os.path.join(tmpdir, "stats.pt"))["stats"]
+    r0, r1 = reports[0], reports[1]
+    for key in ("replicated", "sharded"):
+        if r0[key]["params_digest"] != r1[key]["params_digest"]:
+            raise AssertionError(f"world-2 {key}: parameters differ across "
+                                 "ranks")
+    if r0["replicated"]["buffers_digest"] != r1["replicated"]["buffers_digest"]:
+        raise AssertionError("world-2: BatchNorm statistics differ across "
+                             "ranks")
+    if not r0["zero1_vs_replicated_max_abs"] <= \
+            ZERO_W2_TOL * r0["replicated_max_update"]:
+        raise AssertionError(
+            f"world-2 ZeRO-1 parameters {r0['zero1_vs_replicated_max_abs']} "
+            f"from the replicated run's (largest update "
+            f"{r0['replicated_max_update']})")
+    # The replay: one process, both ranks' images as one batch of 32, on
+    # the weights and images cnn_benchmark.setup made from the seed.
+    device = torch.device("cuda:0")
+    build, hw = cnn_benchmark.MODELS["resnet50"]
+    torch.manual_seed(seed)
+    model = build(torch.bfloat16).to(device)
+    images = []
+    for rank in range(2):
+        gen = torch.Generator(device=device).manual_seed(seed * 1000 + rank)
+        images.append(torch.randn(CNN_W2_BATCH, 3, hw, hw, generator=gen,
+                                  device=device))
+    model.train()
+    with torch.no_grad():
+        model(torch.cat(images).contiguous(memory_format=torch.channels_last))
+    worst = 0.0
+    for name, buf in model.named_buffers():
+        want = buf.detach().float().cpu()
+        err = (stats[name].float() - want).abs().max().item() / \
+            max(want.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+    if not worst <= BN_REPLAY_TOL:
+        raise AssertionError(f"synced BatchNorm statistics {worst} from the "
+                             "one-process replay")
+    del model, images
+    torch.cuda.empty_cache()
+    return {"ranks": [r0, r1], "bn_replay_max_rel_err": worst,
+            "bn_replay_tol": BN_REPLAY_TOL, "zero1_tol": ZERO_W2_TOL}
+
+
+def timed_phase(fn, *args):
+    """``fn(*args)`` and its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, round(time.perf_counter() - t0, 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1634,8 +2143,9 @@ def main() -> int:
     if args.stop_after == "kernels":
         return 0
 
-    codec, codec_timing = codec_phase(qz, args.seed)
-    print(json.dumps({"phase": "codec_kernels", **codec}), flush=True)
+    (codec, codec_timing), secs = timed_phase(codec_phase, qz, args.seed)
+    print(json.dumps({"phase": "codec_kernels", "seconds": secs, **codec}),
+          flush=True)
     for name, (ms, plain, (bound_ms, bound_by), lib) \
             in codec_timing.items():
         print(json.dumps({"kernel": name, "elements": GPT_SMALL_PARAMS,
@@ -1648,19 +2158,31 @@ def main() -> int:
                           "library_call": CODEC_LIBRARY[name],
                           "card": card}), flush=True)
 
-    ref = reference_phase(args.seed)
-    print(json.dumps({"phase": "reference", "flash_vs_dense": ref}),
-          flush=True)
+    ref, secs = timed_phase(reference_phase, args.seed)
+    print(json.dumps({"phase": "reference", "seconds": secs,
+                      "flash_vs_dense": ref}), flush=True)
 
-    res = slice_phase(hvd, fa, args.seed)
+    res, secs = timed_phase(slice_phase, hvd, fa, args.seed)
     print(json.dumps({"phase": "slice", "model": "GPT_SMALL",
-                      "batch": 8, "seq": 1024, "card": card, **res}),
-          flush=True)
+                      "batch": 8, "seq": 1024, "card": card,
+                      "seconds": secs, **res}), flush=True)
     torch.cuda.empty_cache()
-    spine1 = spine_world1(hvd, fa, args.seed)
+    spine1, secs = timed_phase(spine_world1, hvd, fa, args.seed)
     print(json.dumps({"phase": "spine", "part": "world1_nccl",
                       "model": "GPT_SMALL", "batch": 8, "seq": 1024,
-                      "card": card, **spine1}), flush=True)
+                      "card": card, "seconds": secs, **spine1}), flush=True)
+
+    torch.cuda.empty_cache()
+    cnn, secs = timed_phase(cnn_phase, hvd, fa, qz, args.seed)
+    print(json.dumps({"phase": "cnn", "world": 1, "image_px": 224,
+                      "batch": CNN_BATCH, "dtype": "bf16 activations, fp32 "
+                      "parameters", "optimizer": "SGD(0.01, momentum 0.9)",
+                      "card": card, "seconds": secs, **cnn}), flush=True)
+    torch.cuda.empty_cache()
+    bert, secs = timed_phase(bert_phase, hvd, fa, qz, args.seed)
+    print(json.dumps({"phase": "bert", "model": "BERT_LARGE", "world": 1,
+                      "optimizer": "AdamW(1e-4), Compression.fp16",
+                      "card": card, "seconds": secs, **bert}), flush=True)
 
     torch.cuda.empty_cache()
     nccl, _ = spawn_pair(nccl_pair_rank, (), 300)
@@ -1672,15 +2194,17 @@ def main() -> int:
                       "nccl": ".".join(map(str, torch.cuda.nccl.version())),
                       "answers": [nccl[r] for r in sorted(nccl)],
                       "world2_gpu_operations": gpu_operations}), flush=True)
-    rank0, rank1 = world2_phase(args.seed, gpu_operations)
+    (rank0, rank1), secs = timed_phase(world2_phase, args.seed,
+                                       gpu_operations)
     for rep in (rank0, rank1):
         print(json.dumps({"phase": "world2", "model": "GPT_SMALL",
                           "batch_per_rank": 4, "seq": 1024,
                           "note": "two ranks share one card: step times "
                                   "are not a speed result",
-                          "card": card, **rep}), flush=True)
+                          "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
-    spine0, spine1_rank, replayed = spine_world2(args.seed, gpu_operations)
+    (spine0, spine1_rank, replayed), secs = timed_phase(
+        spine_world2, args.seed, gpu_operations)
     for rep in (spine0, spine1_rank):
         print(json.dumps({"phase": "spine", "part": "world2",
                           "model": "GPT_SMALL", "batch_per_rank": 4,
@@ -1689,7 +2213,16 @@ def main() -> int:
                           "replayed_bucket_elems": replayed,
                           "note": "two ranks share one card: step times "
                                   "are not a speed result",
-                          "card": card, **rep}), flush=True)
+                          "card": card, "seconds": secs, **rep}), flush=True)
+    torch.cuda.empty_cache()
+    cnn2, secs = timed_phase(cnn_world2_phase, args.seed, gpu_operations)
+    print(json.dumps({"phase": "cnn_world2", "model": "resnet50",
+                      "batch_per_rank": CNN_W2_BATCH,
+                      "gpu_operations": gpu_operations,
+                      "note": "two ranks share one card over gloo staged "
+                              "through the host: step times are not a "
+                              "speed result",
+                      "card": card, "seconds": secs, **cnn2}), flush=True)
     ef = rank0["ef_trainer"]
     trainer = spine0["trainer"]["launches"]
     codec_launches = {"quant_int8": trainer["quant_int8"],
@@ -1717,6 +2250,8 @@ def main() -> int:
                       if k.startswith(KERNEL_SYMBOL[name])},
             "launch_path": "world-1 trainer",
             "launches_spine_world1": spine1["plain"]["launches"][name],
+            "launches_cnn": cnn["resnet50"]["tpu_kernel_launches"][name],
+            "launches_bert": bert["tpu_kernel_launches"][name],
             "launches_spine_world2": trainer[name],
             "launches_world2_ef_trainer": ef["launches"][name]})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
@@ -1732,6 +2267,8 @@ def main() -> int:
             "library_ms": None if lib is None else lib["device_ms"],
             "library_call": CODEC_LIBRARY[name], "tpu_kernel": tpu_kernel,
             "launches_world2_ef_trainer": ef["launches"][name],
+            "launches_cnn": cnn["resnet50"]["tpu_kernel_launches"][name],
+            "launches_bert": bert["tpu_kernel_launches"][name],
             "launches_world2_collectives":
                 rank0["collectives"]["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)

@@ -8,7 +8,10 @@ beside a ``torch.distributed`` process group; every eager collective
 under a name, negotiated across ranks, fused, and run over NCCL on the
 card (the device plane) or over the core's TCP ring for host buffers;
 ``hvd.DistributedOptimizer`` reduces gradients through the same path, with
-``device_compression=`` on the quantized ring with error feedback.  The
+``device_compression=`` on the quantized ring with error feedback, or
+shards the optimizer's state (``shard_optimizer_states=True``, ZeRO-1);
+``hvd.SyncBatchNorm`` normalizes over the global batch, and
+``horovod_tpu_torch.models`` holds the model zoo.  The
 package imports torch and never jax or the JAX package ``horovod_tpu``,
 which stays beside it as the reference.
 """
@@ -39,7 +42,9 @@ from .mpi_ops import (Adasum, Average, Max, Min, Product, Sum,  # noqa: F401
                       reducescatter, reducescatter_async, synchronize)
 from .ops.collectives import (quantized_allgather,  # noqa: F401
                               quantized_allreduce, quantized_broadcast)
-from .optimizer import DistributedOptimizer  # noqa: F401
+from .optimizer import (DistributedOptimizer,  # noqa: F401
+                        clip_by_global_norm)
+from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from .process_sets import (ProcessSet, add_process_set,  # noqa: F401
                            global_process_set, remove_process_set)
 from .wire import ReduceOp  # noqa: F401

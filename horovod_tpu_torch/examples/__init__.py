@@ -1,0 +1,14 @@
+"""Trainers ported from the JAX package's examples, run as
+``python -m horovod_tpu_torch.examples.<name>``:
+
+- ``cnn_benchmark``: ResNet-50/101, Inception V3, VGG-16 or ResNetTiny on
+  synthetic images, images/s per card (``examples/jax_cnn_benchmark.py``);
+- ``bert_pretraining``: BERT MLM pretraining with fp16 gradient
+  compression, sequences/s per card (``examples/jax_bert_pretraining.py``);
+- ``mnist_mlp``: the MLP on synthetic MNIST-shaped data
+  (``examples/jax_mnist_mlp.py``).
+
+Each is a ``main(argv)`` that runs on ``hvd.device()``: the card, unless
+the caller ran ``hvd.init(device="cpu")`` first.  It returns what it
+measured besides printing the reference's result line.
+"""

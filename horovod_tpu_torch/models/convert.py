@@ -13,6 +13,20 @@ parameters, or their gradients, back onto the flax layout.  Layouts:
 - a ``Dense`` kernel ``[in, out]`` -> ``weight = kernel.T``;
 - ``Embed.embedding`` and LayerNorm ``scale``/``bias`` keep their layout
   (``scale`` becomes ``weight``); ``lm_head`` has no bias.
+
+``from_jax`` and ``to_jax`` do the same for the rest of the zoo (MLP,
+ResNet, VGG, Inception V3, BERT), whose torch modules carry the flax
+names, so a flax path ``a/b/kernel`` is the torch key ``a.b.weight``:
+
+| flax leaf | torch |
+|---|---|
+| Conv ``kernel`` HWIO | ``weight`` OIHW |
+| Dense ``kernel`` ``[in, out]`` | ``weight`` ``[out, in]`` |
+| DenseGeneral ``qkv`` ``[hidden, 3, heads, hd]`` | ``weight`` ``[3 * heads * hd, hidden]``, (3, heads, hd) order |
+| DenseGeneral ``out`` ``[heads, hd, hidden]`` | ``weight`` ``[hidden, heads * hd]`` |
+| ``bias`` (any shape) | ``bias``, flattened |
+| BatchNorm and LayerNorm ``scale``, Embed ``embedding`` | ``weight`` |
+| ``batch_stats`` ``mean``/``var`` | ``running_mean``/``running_var`` |
 """
 
 from __future__ import annotations
@@ -101,3 +115,87 @@ def gpt_params_to_jax(named: Dict[str, torch.Tensor], like) -> dict:
             "mlp_out": dense(blk["mlp_out"], f"{pre}.mlp_out"),
         }
     return out
+
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_WEIGHT = ("kernel", "scale", "embedding")
+
+
+def _leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def _torch_key(path, collection: str) -> str:
+    *mods, leaf = path
+    if collection == "batch_stats":
+        leaf = _STATS[leaf]
+    elif leaf in _WEIGHT:
+        leaf = "weight"
+    return ".".join([*mods, leaf])
+
+
+def _kernel_to_torch(path, k: np.ndarray) -> np.ndarray:
+    if path[-2] == "qkv":                   # [hidden, 3, heads, hd]
+        return k.reshape(k.shape[0], -1).T
+    if k.ndim == 4:                         # conv HWIO -> OIHW
+        return k.transpose(3, 2, 0, 1)
+    return k.reshape(-1, k.shape[-1]).T     # Dense, DenseGeneral "out"
+
+
+def _kernel_to_jax(path, w: np.ndarray, shape) -> np.ndarray:
+    if len(shape) == 4 and path[-2] != "qkv":
+        return w.transpose(2, 3, 1, 0)
+    return w.T.reshape(shape)
+
+
+def _collections(variables):
+    if "params" in variables:
+        return {k: v for k, v in variables.items()
+                if k in ("params", "batch_stats")}
+    return {"params": variables}
+
+
+def from_jax(variables) -> Dict[str, torch.Tensor]:
+    """A zoo model's flax variables (``{"params": ..., "batch_stats":
+    ...}`` or a bare parameter tree, numpy leaves) -> the port's
+    ``state_dict`` entries (see the module docstring's table)."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in _collections(variables).items():
+        for path, leaf in _leaves(tree):
+            a = np.asarray(leaf)
+            if path[-1] == "kernel":
+                a = _kernel_to_torch(path, a)
+            elif path[-1] == "bias":
+                a = a.reshape(-1)
+            out[_torch_key(path, collection)] = torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.float32))
+    return out
+
+
+def to_jax(named: Dict[str, torch.Tensor], like) -> dict:
+    """The port's tensors under ``state_dict`` keys (parameters, their
+    gradients, running statistics) -> numpy arrays in the layout of
+    ``like``, a flax variable or parameter tree with the same
+    collections."""
+    def convert(tree, collection, path=()):
+        res = {}
+        for key, value in tree.items():
+            p = path + (key,)
+            if isinstance(value, dict) or hasattr(value, "items"):
+                res[key] = convert(value, collection, p)
+                continue
+            shape = np.shape(value)
+            a = named[_torch_key(p, collection)].detach().float().cpu() \
+                .numpy()
+            if key == "kernel":
+                a = _kernel_to_jax(p, a, shape)
+            res[key] = np.ascontiguousarray(a.reshape(shape))
+        return res
+
+    if "params" in like:
+        return {c: convert(t, c) for c, t in _collections(like).items()}
+    return convert(like, "params")

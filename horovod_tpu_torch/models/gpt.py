@@ -26,8 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import dense_attention, flash_attention
-
-LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+from ._layers import LN_EPS
+from ._layers import layer_norm as _layer_norm
+from ._layers import linear as _linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,15 +46,6 @@ GPT_SMALL = GPTConfig()
 GPT_TINY = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                      num_heads=4, max_seq_len=256, use_flash=False,
                      dtype=torch.float32)
-
-
-def _linear(x, layer: nn.Linear, dtype: torch.dtype):
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
-
-
-def _layer_norm(x, ln: nn.LayerNorm, dtype: torch.dtype):
-    return ln(x.float()).to(dtype)
 
 
 class CausalSelfAttention(nn.Module):

@@ -94,6 +94,18 @@ def _gather_equal(flat: torch.Tensor, ring: GroupRing) -> torch.Tensor:
     return torch.stack(parts).to(flat.device)
 
 
+def _factor(f: float, like: torch.Tensor) -> torch.Tensor:
+    """A scale factor rounded to ``like``'s dtype, as the reference's device
+    plane uses it (``jnp.asarray(f, x.dtype)``).  Multiplying by the Python
+    float instead would scale a 16-bit tensor in fp32 by the unrounded
+    factor, 1 ulp off in many elements."""
+    return torch.tensor(f, dtype=like.dtype, device=like.device)
+
+
+def _times(x: torch.Tensor, f: float) -> torch.Tensor:
+    return x * _factor(f, x)
+
+
 def plain_allreduce(flat: torch.Tensor, rop: ReduceOp,
                     ring: GroupRing) -> torch.Tensor:
     """Reduce ``flat`` (owned by the caller, may be overwritten) over the
@@ -324,9 +336,9 @@ class DevicePlane:
     @staticmethod
     def _scaled(x: torch.Tensor, pre: float, post: float) -> torch.Tensor:
         if pre != 1.0:
-            x = x * pre
+            x = _times(x, pre)
         if post != 1.0:
-            x = x * post
+            x = _times(x, post)
         return x
 
     def _exec_allreduce(self, resp, entries: Sequence) -> None:
@@ -351,7 +363,7 @@ class DevicePlane:
             flat[off:off + t.numel()] = t.reshape(-1)
             off += t.numel()
         if pre != 1.0:
-            flat[:total].mul_(pre)
+            flat[:total].mul_(_factor(pre, flat))
         codec = self._device_codec(rop, flat.dtype, length, k)
         schedule = self._device_schedule(k)
         if codec != "none":
@@ -366,7 +378,7 @@ class DevicePlane:
             n = e.device_tensor.numel()
             seg = out[off:off + n]
             if post != 1.0:
-                seg = seg * post
+                seg = _times(seg, post)
             elif len(entries) > 1 and not e.inplace:
                 seg = seg.clone()  # a result must not pin the whole bucket
             self._finish(e, seg)
@@ -396,7 +408,7 @@ class DevicePlane:
             return
         flat = x.reshape(-1).clone()
         if pre != 1.0:
-            flat.mul_(pre)
+            flat.mul_(_factor(pre, flat))
         src = _to_wire(flat, ring)
         out = torch.empty(flat.numel() // k, dtype=flat.dtype,
                           device=src.device)
@@ -406,7 +418,7 @@ class DevicePlane:
         if e.reduce_op == ReduceOp.AVERAGE:
             out = qz._div(out, k)
         if post != 1.0:
-            out = out * post
+            out = _times(out, post)
         e.result = out.reshape((x.shape[0] // k,) + tuple(x.shape[1:]))
         self._count("reducescatter")
 

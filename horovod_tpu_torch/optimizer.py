@@ -33,6 +33,16 @@ residual.  The error-feedback rings run in ``synchronize()`` on the
 caller's thread, on the caller's process group (``basics.caller_group``),
 so they never interleave with the executor's collectives.
 
+``shard_optimizer_states=True`` is ZeRO-1, the counterpart of
+``horovod_tpu/optimizer.py:_sharded_distributed_optimizer``: ``step()``
+flattens every gradient into one fp32 vector padded to ``size * chunk``,
+reduce-scatters it through the spine (Average or Sum), lets the wrapped
+optimizer step on this rank's ``chunk`` of fp32 master weights (so its
+momentum or moments live once across the ranks, and a bf16 model keeps
+its sub-ulp updates), allgathers the master shards and casts them back
+into the parameters.  :func:`clip_by_global_norm` is the torch form of
+``optax.chain(hvd.clip_by_global_norm(max_norm, axis_name), inner)``.
+
 Like the reference, the factory builds a dynamic subclass of the wrapped
 optimizer's own class, so the result isinstance-checks as (say)
 ``torch.optim.AdamW`` and keeps working with LR schedulers.
@@ -46,7 +56,7 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from . import mpi_ops
+from . import basics, mpi_ops
 from .compression import Compression
 from .ops import collectives as _ops
 from .ops import quantize as _qz
@@ -285,6 +295,163 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
+class _ShardedDistributedOptimizer(torch.optim.Optimizer):
+    """ZeRO-1 (see the module docstring).  The optimizer's own
+    ``param_groups`` hold this rank's slices of the fp32 master shard, one
+    slice per group of the wrapped optimizer with that group's
+    hyperparameters (empty where the shard misses the group), so LR
+    schedulers and ``state_dict()`` work on what this rank steps.  The
+    master shard is taken from the parameters at the first step, after any
+    ``broadcast_parameters``; later the parameters must change only
+    through this optimizer, as in the reference."""
+
+    def __init__(self, param_groups, named_parameters, op: ReduceOp):
+        self._zero_params = [p for g in param_groups for p in g["params"]]
+        if not self._zero_params:
+            raise ValueError(
+                "shard_optimizer_states=True needs a non-empty parameter "
+                "list (nothing to shard)")
+        names = {id(p): n for n, p in (named_parameters or [])}
+        sig = ",".join(names.get(id(p), f"allreduce.noname.{i}")
+                       for i, p in enumerate(self._zero_params))
+        self._zero_name = "hvd.zero1." + hashlib.sha1(
+            sig.encode()).hexdigest()[:12]
+        self._zero_op = ReduceOp(op)
+        self._zero_world = basics.size() if basics.is_initialized() else 1
+        total = sum(p.numel() for p in self._zero_params)
+        self._zero_chunk = -(-total // self._zero_world)
+        rank = basics.rank() if basics.is_initialized() else 0
+        lo = rank * self._zero_chunk
+        device = self._zero_params[0].device
+        self._zero_master = torch.zeros(self._zero_chunk,
+                                        dtype=torch.float32, device=device)
+        self._zero_grad = torch.zeros_like(self._zero_master)
+        self._zero_synced = False
+        groups, start = [], 0
+        for gi, g in enumerate(param_groups):
+            end = start + sum(p.numel() for p in g["params"])
+            if gi == len(param_groups) - 1:
+                end = self._zero_world * self._zero_chunk  # and the padding
+            a, b = max(start, lo) - lo, min(end, lo + self._zero_chunk) - lo
+            params = []
+            if a < b:
+                alias = torch.nn.Parameter(self._zero_master[a:b])
+                alias.grad = self._zero_grad[a:b]
+                params.append(alias)
+            groups.append({**{k: v for k, v in g.items() if k != "params"},
+                           "params": params})
+            start = end
+        super(self.__class__, self).__init__(groups)
+
+    def _zero_flat(self, tensors) -> torch.Tensor:
+        flat = torch.zeros(self._zero_world * self._zero_chunk,
+                           dtype=torch.float32, device=self._zero_master.device)
+        off = 0
+        for t in tensors:
+            flat[off:off + t.numel()] = t.reshape(-1)
+            off += t.numel()
+        return flat
+
+    def _zero_own(self, flat: torch.Tensor) -> torch.Tensor:
+        rank = basics.rank() if basics.is_initialized() else 0
+        return flat[rank * self._zero_chunk:(rank + 1) * self._zero_chunk]
+
+    def synchronize(self) -> None:
+        """Reduce-scatter the gradients into this rank's shard (the master
+        slices' ``.grad``)."""
+        flat = self._zero_flat(
+            [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in self._zero_params])
+        with torch.no_grad():
+            self._zero_grad.copy_(mpi_ops.reducescatter(
+                flat, op=self._zero_op, name=f"{self._zero_name}.grads"))
+
+    def step(self, closure=None):
+        with torch.no_grad():
+            if not self._zero_synced:
+                self._zero_master.copy_(self._zero_own(self._zero_flat(
+                    [p.detach() for p in self._zero_params])))
+                self._zero_synced = True
+        self.synchronize()
+        loss = super(self.__class__, self).step(closure)
+        with torch.no_grad():
+            full = mpi_ops.allgather(self._zero_master,
+                                     name=f"{self._zero_name}.master")
+            off = 0
+            for p in self._zero_params:
+                n = p.numel()
+                p.copy_(full[off:off + n].view(p.shape))
+                off += n
+        return loss
+
+    def zero_grad(self, set_to_none: bool = True):
+        for p in self._zero_params:
+            if p.grad is not None:
+                if set_to_none:
+                    p.grad = None
+                else:
+                    p.grad.zero_()
+        self._zero_grad.zero_()
+
+    def shard_bytes(self) -> dict:
+        """Bytes this rank keeps: the wrapped optimizer's state of its shard
+        (``state``: momentum, moments) and the fp32 master shard
+        (``master``)."""
+        state = sum(v.numel() * v.element_size()
+                    for st in self.state.values() for v in st.values()
+                    if isinstance(v, torch.Tensor) and v.dim() > 0)
+        return {"state": state, "master": self._zero_master.numel() *
+                self._zero_master.element_size()}
+
+
+_clip_count = 0
+
+
+def clip_by_global_norm(optimizer: torch.optim.Optimizer, max_norm: float,
+                        process_set: Optional[ProcessSet] = None
+                        ) -> torch.optim.Optimizer:
+    """Clip the gradients ``optimizer`` steps on by their global norm before
+    each step: the torch form of ``horovod_tpu``'s
+    ``optax.chain(hvd.clip_by_global_norm(max_norm, axis_name), inner)``.
+
+    ``process_set`` plays ``axis_name``'s part: None clips by the norm of
+    this rank's gradients (optax's ``clip_by_global_norm``); a ProcessSet
+    (``hvd.global_process_set`` for every rank) first sums the squared norm
+    over its ranks through the spine, which the wrapped optimizer of
+    ``DistributedOptimizer(..., shard_optimizer_states=True)`` needs: each
+    rank then holds 1/n of the gradient.  The scale is ``min(1, max_norm /
+    max(norm, 1e-12))``, cast to each gradient's dtype.  ``optimizer`` is
+    re-classed in place (a subclass of its own class) and returned."""
+    global _clip_count
+    base = optimizer.__class__
+    cls = type(base.__name__, (base,), {"step": _clipped_step})
+    cls._clip_cls = cls
+    cls._clip = (float(max_norm), process_set,
+                 f"hvd.clip_by_global_norm.{_clip_count}")
+    _clip_count += 1
+    optimizer.__class__ = cls
+    return optimizer
+
+
+def _clipped_step(self, closure=None):
+    max_norm, process_set, name = self._clip
+    grads = [p.grad for g in self.param_groups for p in g["params"]
+             if p.grad is not None]
+    device = grads[0].device if grads else None
+    local = torch.zeros(1, dtype=torch.float32, device=device)
+    for g in grads:
+        local += g.float().square().sum()
+    if process_set is not None:
+        local = mpi_ops.allreduce(local, op=mpi_ops.Sum, name=name,
+                                  process_set=process_set)
+    norm = torch.sqrt(local)
+    scale = torch.clamp(max_norm / norm.clamp_min(1e-12), max=1.0)
+    with torch.no_grad():
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+    return super(self._clip_cls, self).step(closure)
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters: Optional[
                              Iterable[Tuple[str, torch.nn.Parameter]]] = None,
@@ -312,10 +479,6 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if process_set is not None and not isinstance(process_set, ProcessSet):
         raise TypeError(f"process_set must be a ProcessSet, got "
                         f"{type(process_set).__name__}")
-    if shard_optimizer_states:
-        raise NotImplementedError(
-            "DistributedOptimizer(shard_optimizer_states=...) arrives with "
-            "ZeRO-1, a later slice of the port (ROADMAP Queue 1 item 1)")
     codec = device_compression
     if codec is None:
         codec = _ops._device_codec_defaults()[0]
@@ -323,6 +486,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if codec not in _qz.DEVICE_WIRE_CODECS:
         raise ValueError("device_compression must be one of "
                          f"{_qz.DEVICE_WIRE_CODECS}, got {codec!r}")
+    if shard_optimizer_states:
+        return _sharded(optimizer, named_parameters, compression,
+                        backward_passes_per_step, op,
+                        gradient_predivide_factor, process_set,
+                        device_compression, codec)
     if codec != "none":
         if compression is not Compression.none:
             raise ValueError(
@@ -352,3 +520,35 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,
                process_set, num_groups, groups, codec)
+
+
+def _sharded(optimizer, named_parameters, compression,
+             backward_passes_per_step, op, gradient_predivide_factor,
+             process_set, device_compression, codec):
+    """ZeRO-1's refusals, with the reference's messages; a codec from the
+    environment just opts out."""
+    if codec != "none" and device_compression is not None:
+        raise ValueError(
+            f"device_compression={codec!r} is incompatible with "
+            "shard_optimizer_states (the sharded path reduce-scatters "
+            "exactly once; quantizing it is future work)")
+    if compression is not Compression.none:
+        raise ValueError(
+            "shard_optimizer_states is incompatible with compression "
+            "(the shard math runs in fp32 anyway)")
+    if backward_passes_per_step != 1:
+        raise ValueError("shard_optimizer_states requires "
+                         "backward_passes_per_step=1")
+    if gradient_predivide_factor != 1.0:
+        raise ValueError("shard_optimizer_states does not support "
+                         "gradient_predivide_factor")
+    if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+        raise ValueError(
+            "shard_optimizer_states supports op=Average or Sum")
+    if process_set is not None:
+        raise ValueError(
+            "shard_optimizer_states does not support process_set; it "
+            "shards over every rank")
+    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+               dict(_ShardedDistributedOptimizer.__dict__))
+    return cls(optimizer.param_groups, list(named_parameters or []), op)

@@ -68,7 +68,10 @@ def test_imports_with_jax_and_reference_blocked():
     assert int(count) >= 17  # every module of the package was imported
     assert leaked == "[]"
     for module in ("ops.quantize", "ops.collectives", "optimizer",
-                   "utils.env"):
+                   "utils.env", "sync_batch_norm", "models.resnet",
+                   "models.vgg", "models.inception", "models.bert",
+                   "models.mlp", "models.convert", "examples.cnn_benchmark",
+                   "examples.bert_pretraining", "examples.mnist_mlp"):
         assert f"'horovod_tpu_torch.{module}'" in names
 
 

@@ -273,20 +273,24 @@ def test_gather_and_broadcast_np2(ranks):
     {"process_set": object()}, {"num_groups": 2, "groups": [[]]},
     {"shard_optimizer_states": True}, {"groups": "frozen"}])
 def test_later_slice_options_raise(kwargs):
-    """Of the options that raised before the negotiated spine, only ZeRO-1
-    is still a later slice; process sets and fusion groups are served and
-    their misuse raises as the reference does: a process set that is not
-    a ProcessSet, num_groups with groups, a group holding a frozen
-    parameter (its hook never fires, so the group could never complete)."""
+    """The options that raised before the negotiated spine and ZeRO-1 are
+    served now, and their misuse raises as the reference does: a process
+    set that is not a ProcessSet, num_groups with groups, a group holding
+    a frozen parameter (its hook never fires, so the group could never
+    complete), ZeRO-1 with wire compression (its shard math is fp32)."""
     import horovod_tpu_torch as hvd
 
     model = _make_model(0)
     if kwargs.get("groups") == "frozen":
         model[2].bias.requires_grad_(False)
         kwargs = {"groups": [[model[0].weight, model[2].bias]]}
+    if "shard_optimizer_states" in kwargs:
+        kwargs = {"shard_optimizer_states": True,
+                  "compression": hvd.Compression.fp16}
     want = {"process_set": (TypeError, "ProcessSet"),
             "num_groups": (ValueError, "either num_groups or groups"),
-            "shard_optimizer_states": (NotImplementedError, "later slice"),
+            "shard_optimizer_states": (ValueError,
+                                       "incompatible with compression"),
             "groups": (ValueError, "requires-grad")}[next(iter(kwargs))]
     with pytest.raises(want[0], match=want[1]):
         hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),

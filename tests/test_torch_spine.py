@@ -14,6 +14,10 @@ Each rank saves what it computed; the tests compare the files.
   sets, join, duplicate-name deferral, a shape mismatch) run through the
   port twice: numpy arrays ride the host ring, CPU tensors the device
   plane (gloo here).  Both must equal the reference bit for bit.
+- bf16 and fp16 tensors scaled on the device plane (a one-member set,
+  a fused allreduce, a reducescatter), bitwise against the reference
+  device plane's arithmetic ``x * jnp.asarray(f, dtype)``: the factor
+  rounded to the tensor's dtype first.
 - A fused fp32 bucket under ``HOROVOD_WIRE_COMPRESSION=device=<codec>``
   for int8, int4 and int8g against the reference's
   ``_quantized_ring_allreduce_sum`` over two devices of the conftest's CPU
@@ -31,11 +35,16 @@ Each rank saves what it computed; the tests compare the files.
   leaves with negotiated ones.
 
 The JAX side of the codec parity is computed in a thread of the test
-process while the workers run.
+process while the workers run.  Both native cores are built before the
+workers start; each worker starts without the ``HOROVOD_*`` settings of
+the process that spawned it, and takes each rendezvous port from rank 0
+just before the ``hvd.init`` that uses it.
 """
 
 import os
 import socket
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -153,6 +162,39 @@ def _join_cases(hvd, to, rank, tag):
     return out
 
 
+SCALE_FACTORS = (0.3, 0.1, 1 / 3, 2.5)
+SCALE_DTYPES = ("bfloat16", "float16")
+
+
+def _scale_cases(hvd, rank, sets):
+    """16-bit tensors scaled on the device plane, each factor as prescale
+    with the next one as postscale: through a one-member set (the identity
+    path, no transfer), a fused two-member Sum and a Sum reducescatter.
+    Results are returned as fp32 (exact for 16-bit values)."""
+    inp = _inputs()
+    out = {}
+    for dt in SCALE_DTYPES:
+        cast = getattr(torch, dt)
+        x = torch.from_numpy(inp["x"][rank]).to(cast)
+        y = torch.from_numpy(inp["y"][rank]).to(cast)
+        rs = torch.from_numpy(inp["rs"][rank][:4]).to(cast)
+        for i, pre in enumerate(SCALE_FACTORS):
+            post = SCALE_FACTORS[(i + 1) % len(SCALE_FACTORS)]
+            kw = dict(op=hvd.Sum, prescale_factor=pre, postscale_factor=post)
+            tag = f"{dt}.{i}"
+            got = {
+                "own": hvd.allreduce(x, process_set=sets[rank],
+                                     name=f"scale.own{rank}.{tag}", **kw),
+                "fused": hvd.grouped_allreduce([x, y],
+                                               name=f"scale.fused.{tag}",
+                                               **kw),
+                "rs": hvd.reducescatter(rs, name=f"scale.rs.{tag}", **kw)}
+            out[(dt, i)] = {k: _np([t.float() for t in v]
+                                   if isinstance(v, list) else v.float())
+                            for k, v in got.items()}
+    return out
+
+
 def _mismatch(hvd, to, rank):
     """A shape that differs across ranks under one name: both raise."""
     try:
@@ -203,6 +245,11 @@ def _gpt_steps(rank, make_optimizer):
 
 
 def _env(rank, port, **extra):
+    # A pytest worker's environment carries whatever earlier test files in
+    # that process left in it; a worker of this file starts from none of
+    # their HOROVOD_* settings.
+    for var in [v for v in os.environ if v.startswith("HOROVOD_")]:
+        del os.environ[var]
     os.environ.update(
         HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(WORLD),
         HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(WORLD),
@@ -214,12 +261,9 @@ def _env(rank, port, **extra):
         HOROVOD_SHM_DISABLE="1", **extra)
 
 
-def _port_worker(rank, ports, outdir):
+def _port_worker(rank, outdir):
     torch.set_num_threads(1)
-    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_HIER_FAKE_HOSTS",
-                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES", "HOROVOD_CONTROLLER"):
-        os.environ.pop(var, None)
-    _env(rank, ports[0])
+    _env(rank, _phase_port(outdir, rank, "port"))
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.context import HorovodContext
     from horovod_tpu_torch.ops.device_plane import bucket_len
@@ -234,6 +278,7 @@ def _port_worker(rank, ports, outdir):
             hvd.add_process_set([0, 1])]
     res["host"].update(_set_cases(hvd, np.asarray, rank, "h", sets))
     res["device"].update(_set_cases(hvd, torch.from_numpy, rank, "d", sets))
+    res["scale16"] = _scale_cases(hvd, rank, sets)
     res["mismatch"] = _mismatch(hvd, torch.from_numpy, rank)
     res["opt"] = _gpt_steps(rank, hvd.DistributedOptimizer)
     res["ef_mix"] = _ef_mix(hvd, rank)
@@ -244,8 +289,9 @@ def _port_worker(rank, ports, outdir):
     hvd.shutdown()
 
     inp = _inputs()
-    for codec, port in zip(CODECS, ports[1:]):
-        _env(rank, port, HOROVOD_WIRE_COMPRESSION=f"device={codec}",
+    for codec in CODECS:
+        _env(rank, _phase_port(outdir, rank, codec),
+             HOROVOD_WIRE_COMPRESSION=f"device={codec}",
              HOROVOD_WIRE_COMPRESSION_MIN_BYTES="4096")
         hvd.init(device="cpu")
         members = [torch.from_numpy(b[rank]) for b in inp["bucket"]]
@@ -256,7 +302,8 @@ def _port_worker(rank, ports, outdir):
         res[f"bucket_len/{codec}"] = bucket_len(sum(BUCKET))
         hvd.shutdown()
 
-    _env(rank, ports[-1], HOROVOD_WIRE_COMPRESSION="int8",
+    _env(rank, _phase_port(outdir, rank, "host_codec"),
+         HOROVOD_WIRE_COMPRESSION="int8",
          HOROVOD_HIER_FAKE_HOSTS=str(WORLD),
          HOROVOD_WIRE_COMPRESSION_MIN_BYTES="1")
     hvd.init(device="cpu")
@@ -279,8 +326,12 @@ def _ef_mix(hvd, rank):
         named_parameters=model.named_parameters(), device_compression="int8")
     x = torch.from_numpy(np.random.default_rng(rank).standard_normal(
         (4, 200)).astype(np.float32))
+    # The local gradients come from a pass of their own: after backward()
+    # the hooks' in-place allreduces may already be writing into p.grad.
+    names, params = zip(*model.named_parameters())
+    local = dict(zip(names, torch.autograd.grad(model(x).pow(2).sum(),
+                                                params)))
     model(x).pow(2).sum().backward()
-    local = {n: p.grad.clone() for n, p in model.named_parameters()}
     opt.synchronize()
     return {"local": {n: g.numpy() for n, g in local.items()},
             "reduced": {n: p.grad.numpy().copy()
@@ -288,12 +339,9 @@ def _ef_mix(hvd, rank):
             "ef": sorted(model[0].weight is p for p in opt._ef_residuals)}
 
 
-def _reference_worker(rank, port, outdir):
+def _reference_worker(rank, outdir):
     torch.set_num_threads(1)
-    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_HIER_FAKE_HOSTS",
-                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES", "HOROVOD_CONTROLLER"):
-        os.environ.pop(var, None)
-    _env(rank, port, JAX_PLATFORMS="cpu")
+    _env(rank, _phase_port(outdir, rank, "reference"), JAX_PLATFORMS="cpu")
     import horovod_tpu as hvd
     from horovod_tpu.torch import DistributedOptimizer
 
@@ -313,6 +361,38 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _phase_port(outdir, rank, phase):
+    """The rendezvous port of one ``hvd.init``: rank 0 picks a free port
+    just before its init and hands it to rank 1 through a file.  A port
+    picked when the module started would wait tens of seconds for its init
+    under load, while this process's own gloo connections and other test
+    processes take ephemeral ports from the same range."""
+    path = os.path.join(outdir, f"{phase}.rendezvous_port")
+    if rank == 0:
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as f:
+            f.write(str(_free_port()))
+        os.replace(tmp, path)
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not os.path.exists(path):
+        assert time.monotonic() < deadline, f"no port for {phase}"
+        time.sleep(0.01)
+    with open(path) as f:
+        return int(f.read())
+
+
+def _build_cores():
+    """Both native cores, built before the workers start, so the workers'
+    time limit counts their own work and not a first build (tens of
+    seconds, more beside other test processes)."""
+    from horovod_tpu_torch.ops import _build
+
+    _build.build_core()
+    cpp = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "horovod_tpu", "cpp")
+    subprocess.run(["make", "-s"], cwd=cpp, check=True, capture_output=True)
 
 
 def _codec_reference():
@@ -346,14 +426,11 @@ def runs(tmp_path_factory):
     from concurrent.futures import ThreadPoolExecutor
 
     outdir = tmp_path_factory.mktemp("spine")
+    _build_cores()
     ctx = torch.multiprocessing.get_context("spawn")
-    port_ports = [_free_port() for _ in range(len(CODECS) + 2)]
-    ref_port = _free_port()
-    procs = [ctx.Process(target=_port_worker,
-                         args=(r, port_ports, str(outdir)))
+    procs = [ctx.Process(target=_port_worker, args=(r, str(outdir)))
              for r in range(WORLD)]
-    procs += [ctx.Process(target=_reference_worker,
-                          args=(r, ref_port, str(outdir)))
+    procs += [ctx.Process(target=_reference_worker, args=(r, str(outdir)))
               for r in range(WORLD)]
     with ThreadPoolExecutor(1) as pool:
         codec_ref = pool.submit(_codec_reference)
@@ -426,6 +503,38 @@ def test_join_zero_participation_matches_reference(runs):
     # Rank 0's device tensor was demoted by negotiation to the host ring.
     assert runs["port"][0]["join_stats"]["host_fallback"] == 1
     assert runs["port"][1]["join_stats"]["host_fallback"] == 0
+
+
+@pytest.mark.parametrize("dtype", SCALE_DTYPES)
+def test_device_plane_rounds_16bit_scale_factors(runs, dtype):
+    """The reference's device plane multiplies by ``jnp.asarray(f, dtype)``
+    (``horovod_tpu/ops/device_plane.py``: ``_scale``, ``_pack``,
+    ``_unpack``, the reducescatter program); the port must give the same
+    bits, on the identity path and across the gloo group."""
+    import jax.numpy as jnp
+
+    dt = getattr(jnp, dtype)
+    inp = _inputs()
+
+    def times(a, f):
+        return a * jnp.asarray(f, dt)
+
+    for i, pre in enumerate(SCALE_FACTORS):
+        post = SCALE_FACTORS[(i + 1) % len(SCALE_FACTORS)]
+        xs = [times(jnp.asarray(inp["x"][r], dt), pre) for r in range(WORLD)]
+        ys = [times(jnp.asarray(inp["y"][r], dt), pre) for r in range(WORLD)]
+        rs = times(jnp.asarray(inp["rs"][0][:4], dt), pre) + \
+            times(jnp.asarray(inp["rs"][1][:4], dt), pre)
+        fused = [times(xs[0] + xs[1], post), times(ys[0] + ys[1], post)]
+        for rank in range(WORLD):
+            got = runs["port"][rank]["scale16"][(dtype, i)]
+            want = {"own": times(xs[rank], post),
+                    "fused": fused,
+                    "rs": times(rs, post)[2 * rank:2 * rank + 2]}
+            for key, w in want.items():
+                w = ([np.asarray(a, np.float32) for a in w]
+                     if isinstance(w, list) else np.asarray(w, np.float32))
+                _assert_same(got[key], w, f"{dtype} {pre} {key} rank {rank}")
 
 
 def test_device_plane_served_the_device_cases(runs):
