@@ -107,6 +107,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    the ZeRO-1 parameters held to the replicated run's (``ZERO_W2_TOL``);
    each rank's optimizer-state bytes printed beside the replicated run's.
 
+11. The rest of the eager spine (``spine_extras``).  (a) World 1 over NCCL:
+   the GPT_SMALL trainer of 7 for 5 steps with the core's planes off and
+   with all of them on (metrics, flight recorder, step trace), twice each
+   in turns, the timeline around the steps and ``hvd.start_device_trace``
+   around the last: the timeline must show a NEGOTIATE for every gradient's
+   name, ``metrics()`` must count the responses and tensors
+   ``HorovodContext.stats`` popped, ``metrics_prometheus()`` must parse
+   with one HELP and one TYPE per family, ``step_trace()`` must hold
+   consecutive rows of the five phases, the flight recorder must be on, and
+   the device trace must name K4-K6 (12 launches a step each); the median
+   step ms of steps 1-3 of both runs of each is printed.  (b) Two ranks on
+   ``cuda:0`` as in 6: ``quantized_alltoall`` and
+   ``quantized_reducescatter`` (Sum, Average) for each codec on 8,192 x 768
+   fp32 a rank, bitwise equal to a CPU simulation of both ranks, K1-K3
+   launched as the schedule implies, the device byte counters equal to
+   (world-1) chunks raw and encoded, an fp16 input demoted to the plain
+   alltoall bit for bit.  (c) GPT-2 small's token and position tables
+   (``nn.Embedding(sparse=True)``) trained 3 steps by
+   ``DistributedOptimizer(SGD, sparse_params=...)`` and with
+   ``sparse_as_dense=True``, each rank on its own batch, rank 1's skipping
+   the position table at one step: parameters bitwise equal across ranks,
+   within ``SPARSE_REPLAY_TOL`` of a one-process replay, the gathers' bytes
+   printed beside the dense tables'.  (d) The ``cnn`` phase prints the step
+   trace's phase sums over ResNet-50's timed steps.
+
 Each phase prints its seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1576,6 +1601,473 @@ def spine_world2(seed, gpu_operations):
 
 
 # ---------------------------------------------------------------------------
+# The rest of the eager spine: the observability planes, the quantized
+# alltoall and reducescatter, sparse gradients.
+# ---------------------------------------------------------------------------
+
+EXTRAS_STEPS = 5
+EXTRAS_TRACED_STEP = 4      # the step inside start/stop_device_trace
+# The core's planes: all off, and the reference's defaults plus metrics
+# (with a step-trace ring long enough for every cycle of the steps).
+PLANES = {"off": {"HOROVOD_METRICS": "0", "HOROVOD_FLIGHT_RECORDER": "off",
+                  "HOROVOD_STEP_TRACE": "off"},
+          "on": {"HOROVOD_METRICS": "1", "HOROVOD_FLIGHT_RECORDER": "on",
+                 "HOROVOD_STEP_TRACE": "on",
+                 "HOROVOD_STEP_TRACE_SLOTS": "4096"}}
+# Each twice, in turns: one host's step time drifts between runs.
+PLANE_RUNS = ("off", "on", "off", "on")
+STEP_PHASES = ["negotiation_wait", "fusion", "ring", "fence", "idle"]
+FLASH_SYMBOLS = ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")
+# An MoE dispatch of GPT-2 small: one batch of 8 x 1024 tokens at width
+# 768, fp32, per rank (25.2 MB).
+A2A_ROWS, A2A_COLS = 8 * 1024, 768
+SPARSE_VOCAB, SPARSE_POSITIONS, SPARSE_WIDTH = 50257, 1024, 768
+SPARSE_BATCH, SPARSE_SEQ, SPARSE_STEPS, SPARSE_LR = 8, 128, 3, 0.1
+# The sparse trainer against a one-process replay with dense embeddings:
+# the same sums of fp32 gradients, duplicates summed in another order.
+SPARSE_REPLAY_TOL = 1e-6
+
+
+def init_with(hvd, env, **kwargs):
+    """``hvd.init(**kwargs)`` with ``env`` set for it; the process's own
+    environment is put back after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        hvd.init(**kwargs)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def prometheus_families(text: str) -> dict:
+    """Check the exposition text line by line; returns family -> number of
+    HELP and TYPE lines.  Every sample's family must have one of each."""
+    import re
+
+    label = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*"'
+    sample = re.compile(rf'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+                        rf'(\{{{label}(,{label})*\}})? -?[0-9.eE+Inf]+$')
+    meta, samples = {}, set()
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            fam = line.split()[2]
+            meta.setdefault(fam, [0, 0])[line.startswith("# TYPE ")] += 1
+            continue
+        m = sample.match(line)
+        if not m:
+            raise AssertionError(f"malformed exposition line {line!r}")
+        samples.add(m.group(1))
+    for name in samples:
+        fam = next((name[:-len(s)] for s in ("_bucket", "_sum", "_count")
+                    if name.endswith(s) and name[:-len(s)] in meta), name)
+        if meta.get(fam) != [1, 1]:
+            raise AssertionError(f"family {fam}: HELP/TYPE {meta.get(fam)}")
+    if any(v != [1, 1] for v in meta.values()):
+        raise AssertionError(f"repeated HELP/TYPE lines: {meta}")
+    return meta
+
+
+def step_trace_phase_sums(trace: dict, since_us: int, until_us: int) -> dict:
+    """Phase sums (us) of the step-trace rows that started in
+    [since_us, until_us] (the core closes a row per cycle that shipped
+    work, so a train step spans many rows)."""
+    rows = [r for r in trace.get("steps", [])
+            if since_us <= r[1] <= until_us]
+    sums = {p: sum(r[3 + i] for r in rows)
+            for i, p in enumerate(trace.get("phases", STEP_PHASES))}
+    return {"rows": len(rows), "phase_us": sums}
+
+
+def observed_world1(hvd, fa, seed, tmpdir, steps=EXTRAS_STEPS, batch=8,
+                    seq=1024):
+    """(a) The GPT_SMALL spine trainer at world 1 over NCCL, in turns with
+    the core's planes off and with all of them on, the timeline around the
+    steps and torch.profiler's device trace around the last of them."""
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+
+    out = {"off": [], "on": []}
+    for planes in PLANE_RUNS:
+        init_with(hvd, PLANES[planes])
+        try:
+            ctx = HorovodContext.instance()
+            if hvd.backend() != "nccl" or ctx.core.name != "native":
+                raise AssertionError(f"planes {planes}: {hvd.backend()} on "
+                                     f"the {ctx.core.name} core")
+            dev = hvd.device()
+            gen = torch.Generator(device=dev).manual_seed(seed + 2)
+            ids = torch.randint(0, GPT_SMALL.vocab_size, (batch, seq),
+                                generator=gen, device=dev)
+            torch.manual_seed(seed)
+            model = GPT(GPT_SMALL).to(dev)
+            names = sorted(n for n, _ in model.named_parameters())
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=1e-4),
+                named_parameters=model.named_parameters())
+            timeline = os.path.join(tmpdir, f"timeline.{planes}.json")
+            if planes == "on":
+                hvd.start_timeline(timeline)
+            before = (dict(ctx.stats), hvd.metrics().get("counters", {}))
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            rows, trace_path, t_first = [], None, time.time()
+            for step in range(steps):
+                traced = planes == "on" and step == EXTRAS_TRACED_STEP
+                if traced:
+                    hvd.start_device_trace(tmpdir)
+                launched = dict(fa.LAUNCHES)
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                loss = lm_loss(model(ids), ids)
+                loss.backward()
+                opt.step()
+                value = hvd.allreduce(loss.detach(),
+                                      name="extras.loss").item()
+                rows.append({"loss": value,
+                             "step_ms": (time.perf_counter() - t0) * 1e3})
+                if traced:
+                    trace_path = hvd.stop_device_trace()
+                rose = {n: fa.LAUNCHES[n] - launched[n] for n in fa.LAUNCHES}
+                if any(r != GPT_SMALL.num_layers for r in rose.values()):
+                    raise AssertionError(f"planes {planes}: launches {rose}, "
+                                         "expected 12 each")
+            t_last = time.time()
+            check_losses(f"observed_{planes}", [r["loss"] for r in rows])
+            # Steps 1-3 of every run: past the first, before the traced one.
+            rep = {"steps": rows, "launches": dict(fa.LAUNCHES),
+                   "steady_step_ms": [r["step_ms"] for r in
+                                      rows[1:EXTRAS_TRACED_STEP]]}
+            if planes == "on":
+                hvd.stop_timeline()
+                rep.update(check_planes(hvd, ctx, before, names, timeline,
+                                        trace_path, t_first, t_last))
+                rep["step_trace"]["rows_per_train_step"] = \
+                    rep["step_trace"]["rows"] / steps
+            out[planes].append(rep)
+            del model, opt
+            torch.cuda.empty_cache()
+        finally:
+            hvd.shutdown()
+    for planes in PLANES:
+        pooled = sorted(ms for rep in out[planes]
+                        for ms in rep["steady_step_ms"])
+        out[f"median_step_ms_planes_{planes}"] = pooled[len(pooled) // 2]
+    return out
+
+
+def check_planes(hvd, ctx, before, names, timeline, trace_path, t_first,
+                 t_last) -> dict:
+    """Every check of (a) on what the planes recorded over the steps."""
+    with open(timeline) as f:
+        events = json.load(f)
+    negotiated = {e["args"]["tensor"] for e in events
+                  if e.get("name") == "NEGOTIATE" and e.get("ph") == "B"}
+    missing = sorted(set(names) - negotiated)
+    if missing:
+        raise AssertionError(f"timeline: no NEGOTIATE for {missing[:5]} "
+                             f"({len(missing)} gradients)")
+    counters = hvd.metrics()["counters"]
+    seen = {"responses": counters["responses_total"]
+            - before[1].get("responses_total", 0),
+            "tensors": counters["tensors_fused_total"]
+            - before[1].get("tensors_fused_total", 0)}
+    popped = {k: ctx.stats[k] - before[0][k] for k in seen}
+    if seen != popped:
+        raise AssertionError(f"metrics {seen} against the context's {popped}")
+    families = prometheus_families(hvd.metrics_prometheus())
+    trace = hvd.step_trace()
+    if trace.get("phases") != STEP_PHASES:
+        raise AssertionError(f"step trace phases {trace.get('phases')}")
+    ids = [r[0] for r in trace["steps"]]
+    done = trace["completed"]
+    if ids != list(range(done - len(ids), done)) or \
+            {len(r) for r in trace["steps"]} != {9}:
+        raise AssertionError(f"step trace rows {ids[:5]}... of {done}")
+    flight = hvd.flight_record()
+    if not flight or not flight.get("types"):
+        raise AssertionError("the flight recorder is off")
+    with open(trace_path) as f:
+        kernels = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for symbol in FLASH_SYMBOLS:
+        if not any(symbol in k for k in kernels):
+            raise AssertionError(f"device trace: no {symbol} among "
+                                 f"{len(kernels)} kernels")
+    return {"timeline_events": len(events),
+            "negotiated_names": len(negotiated), "metrics_vs_stats": seen,
+            "prometheus_families": len(families),
+            "step_trace": {"rows": len(ids), "completed": done,
+                           **step_trace_phase_sums(
+                               trace, int(t_first * 1e6),
+                               int(t_last * 1e6))},
+            "flight_events": len(flight["events"]),
+            "device_trace_kernels": len(kernels),
+            "device_trace_bytes": os.path.getsize(trace_path)}
+
+
+def extras_input(seed, rank):
+    import numpy as np
+
+    x = np.random.default_rng(seed + 300 + rank).standard_normal(
+        (A2A_ROWS, A2A_COLS), dtype=np.float32)
+    x[17, :256] *= 1e3          # a loud block beside quiet ones
+    return torch.from_numpy(x)
+
+
+EXTRAS_CASES = [(kind, codec, op) for codec in CODECS
+                for kind, op in (("alltoall", None), ("reducescatter", "Sum"),
+                                 ("reducescatter", "Average"))]
+
+
+def extras_key(kind, codec, op) -> str:
+    return f"{kind}/{codec}" + (f"/{op}" if op else "")
+
+
+def extras_launches(kind, codec, world=2) -> dict:
+    """An alltoall encodes and decodes each of world chunks; a reducescatter
+    encodes and decodes once per hop, world-1 hops."""
+    n = world if kind == "alltoall" else world - 1
+    out = {"quant_int8": 0, "quant_int4": 0, "dequant": n}
+    out["quant_int4" if codec == "int4" else "quant_int8"] = n
+    return out
+
+
+def extras_bytes(codec, world=2) -> tuple:
+    """(raw, encoded) device bytes of one call: (world-1) chunks of c."""
+    from horovod_tpu_torch.ops import quantize as qz
+
+    c = A2A_ROWS * A2A_COLS // world
+    return (world - 1) * c * 4, (world - 1) * qz.encoded_nbytes(c, codec)
+
+
+def simulate_extras(seed) -> dict:
+    """Digest of each case's result on each rank, from both ranks run as
+    threads on the CPU with the same code and the kernels' plain
+    versions."""
+    import threading
+
+    from horovod_tpu_torch.ops import collectives as col
+    from horovod_tpu_torch.wire import ReduceOp
+
+    xs = [extras_input(seed, r) for r in range(2)]
+    out = {}
+    for kind, codec, op in EXTRAS_CASES:
+        box = (threading.Condition(), {})
+        res = [None, None]
+
+        def run(r):
+            ring = ThreadRing(r, 2, box)
+            res[r] = (col._quantized_alltoall(ring, xs[r], codec)
+                      if kind == "alltoall" else
+                      col._quantized_reducescatter(ring, xs[r],
+                                                   ReduceOp[op.upper()],
+                                                   codec))
+
+        threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for r in range(2):
+            out[(r, extras_key(kind, codec, op))] = digest(res[r])
+    return out
+
+
+def extras_rank(rank, port, seed, gpu_operations, queue):
+    """One of two ranks on ``cuda:0`` for (b) and (c)."""
+    import traceback
+
+    os.environ.update(
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+        HOROVOD_GPU_OPERATIONS=gpu_operations)
+    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_DEVICE_SCHEDULE",
+                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(extras_work(rank, seed))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def extras_work(rank, seed):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantize as qz
+    from horovod_tpu_torch.ops.collectives import _caller_ring
+    from horovod_tpu_torch.ops.device_plane import plain_alltoall
+
+    hvd.init(device="cuda:0")
+    rep = {"rank": rank, "backend": hvd.backend()}
+    try:
+        if HorovodContext.instance().core.name != "native":
+            raise AssertionError("world 2 ran without the native core")
+        # (b) The quantized alltoall and reducescatter.
+        x = extras_input(seed, rank).cuda()
+        digests, wall_ms = {}, {}
+        qz.reset_launch_counts()
+        for kind, codec, op in EXTRAS_CASES:
+            key = extras_key(kind, codec, op)
+            launched, sent = dict(qz.LAUNCHES), qz.device_byte_counters()
+            t0 = time.perf_counter()
+            if kind == "alltoall":
+                out = hvd.quantized_alltoall(x, codec=codec)
+            else:
+                out = hvd.quantized_reducescatter(x, op=getattr(hvd, op),
+                                                  codec=codec)
+            torch.cuda.synchronize()
+            wall_ms[key] = (time.perf_counter() - t0) * 1e3
+            rose = {k: qz.LAUNCHES[k] - launched[k] for k in qz.LAUNCHES}
+            if rose != extras_launches(kind, codec):
+                raise AssertionError(f"{key}: launches {rose}, expected "
+                                     f"{extras_launches(kind, codec)}")
+            now = qz.device_byte_counters()
+            moved = (now[0] - sent[0], now[1] - sent[1])
+            if moved != extras_bytes(codec):
+                raise AssertionError(f"{key}: device bytes {moved}, "
+                                     f"expected {extras_bytes(codec)}")
+            digests[key] = digest(out)
+        launches = dict(qz.LAUNCHES)
+        half = x.half()
+        demoted = hvd.quantized_alltoall(half)
+        if not same_bits(demoted, plain_alltoall(half, _caller_ring())) \
+                or dict(qz.LAUNCHES) != launches:
+            raise AssertionError("fp16 alltoall did not demote to the plain "
+                                 "one bit for bit")
+        rep["collectives"] = {"digests": digests, "wall_ms": wall_ms,
+                              "launches": launches,
+                              "flight_events":
+                                  len(hvd.flight_record()["events"])}
+        if not rep["collectives"]["flight_events"]:
+            raise AssertionError("no flight-recorder event at world 2")
+        del x, half, out, demoted
+        torch.cuda.empty_cache()
+        # (c) Sparse gradients.
+        fa.reset_launch_counts()
+        qz.reset_launch_counts()
+        rep["sparse"] = {v: sparse_trainer(hvd, seed, rank, v)
+                         for v in ("sparse_params", "sparse_as_dense")}
+        if any({**fa.LAUNCHES, **qz.LAUNCHES}.values()):
+            raise AssertionError("the embedding trainer launched a TPU "
+                                 "kernel's port")
+    finally:
+        hvd.shutdown()
+    if rank == 0:
+        for v, r in rep["sparse"].items():
+            r["replay_max_abs_err"] = sparse_replay(seed, v, r.pop("params"))
+            if r["replay_max_abs_err"] > SPARSE_REPLAY_TOL:
+                raise AssertionError(f"{v}: {r['replay_max_abs_err']} from "
+                                     "the one-process replay")
+    else:
+        for r in rep["sparse"].values():
+            r.pop("params")
+    return rep
+
+
+def sparse_model(sparse, dev):
+    torch.manual_seed(0)
+    return torch.nn.ModuleDict({
+        "wte": torch.nn.Embedding(SPARSE_VOCAB, SPARSE_WIDTH, sparse=sparse),
+        "wpe": torch.nn.Embedding(SPARSE_POSITIONS, SPARSE_WIDTH,
+                                  sparse=sparse)}).to(dev)
+
+
+def sparse_loss(model, seed, step, rank):
+    """Each rank's own token ids; rank 1's batch at step 1 touches no
+    position row (the zero-nnz case of the declared ``wpe``)."""
+    gen = torch.Generator().manual_seed(seed + 400 + 10 * step + rank)
+    dev = model["wte"].weight.device
+    ids = torch.randint(0, SPARSE_VOCAB, (SPARSE_BATCH, SPARSE_SEQ),
+                        generator=gen).to(dev)
+    h = model["wte"](ids)
+    if not (step == 1 and rank == 1):
+        h = h + model["wpe"](torch.arange(SPARSE_SEQ, device=dev))
+    return h.square().mean()
+
+
+def sparse_trainer(hvd, seed, rank, variant) -> dict:
+    """(c) GPT-2 small's token and position tables through
+    DistributedOptimizer(SGD): sparse_params= or sparse_as_dense=True."""
+    dev = hvd.device()
+    model = sparse_model(True, dev)
+    named = list(model.named_parameters())
+    kwargs = ({"sparse_params": [n for n, _ in named]}
+              if variant == "sparse_params" else {"sparse_as_dense": True})
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=SPARSE_LR),
+        named_parameters=named, **kwargs)
+    steps = []
+    for step in range(SPARSE_STEPS):
+        opt.zero_grad()
+        sparse_loss(model, seed, step, rank).backward()
+        # Bytes each rank's gathers carry: indices (int64) and fp32 rows of
+        # the coalesced gradient, against the dense allreduce of the table.
+        rows = {n: (p.grad.coalesce()._nnz() if p.grad is not None
+                    and p.grad.is_sparse else 0) for n, p in named}
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        params = {n: digest(p) for n, p in named}
+        peers = hvd.allgather_object(params)
+        if peers[0] != peers[1]:
+            raise AssertionError(f"{variant} step {step}: parameters differ "
+                                 "across ranks")
+        steps.append({"step_ms": ms, "rows": rows,
+                      "gather_bytes": {n: r * (8 + SPARSE_WIDTH * 4)
+                                       for n, r in rows.items()},
+                      "dense_bytes": {n: p.numel() * 4 for n, p in named}})
+    return {"steps": steps,
+            "params": {n: p.detach().cpu() for n, p in named}}
+
+
+def sparse_replay(seed, variant, got) -> float:
+    """One process, dense tables, the two ranks' losses averaged: the
+    largest distance of the trained parameters from ``got``."""
+    dev = torch.device("cuda:0")
+    model = sparse_model(False, dev)
+    opt = torch.optim.SGD(model.parameters(), lr=SPARSE_LR)
+    for step in range(SPARSE_STEPS):
+        opt.zero_grad()
+        loss = sum(sparse_loss(model, seed, step, r) for r in range(2))
+        (loss / 2).backward()
+        opt.step()
+    return max(float((p.detach().cpu() - got[n]).abs().max())
+               for n, p in model.named_parameters())
+
+
+def spine_extras_phase(seed, gpu_operations) -> tuple:
+    """(b) and (c): both ranks on cuda:0, with the CPU simulation of (b)
+    run meanwhile in a thread of this process."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        simulated = pool.submit(simulate_extras, seed)
+        reports, codes = spawn_pair(extras_rank, (seed, gpu_operations), 900)
+        sim = simulated.result()
+    for rep in reports.values():
+        if "error" in rep:
+            raise AssertionError(f"spine_extras rank {rep['rank']} failed:\n"
+                                 f"{rep['error']}")
+    if codes != [0, 0]:
+        raise AssertionError(f"spine_extras exit codes {codes}")
+    for (r, key), want in sim.items():
+        if reports[r]["collectives"]["digests"][key] != want:
+            raise AssertionError(f"rank {r} {key}: the card's result "
+                                 "differs from the CPU simulation")
+    return reports[0], reports[1]
+
+
+# ---------------------------------------------------------------------------
 # The CNN and BERT data-parallel paths.  The JAX package's ResNet, VGG,
 # Inception, MLP and dense BERT reach no pallas_call, so no K1-K6 kernel
 # may launch on them.
@@ -1781,7 +2273,8 @@ def cnn_phase(hvd, fa, qz, seed) -> dict:
     from horovod_tpu_torch.context import HorovodContext
     from horovod_tpu_torch.examples import cnn_benchmark, mnist_mlp
 
-    hvd.init()
+    # A step-trace ring long enough for every cycle of ResNet-50's steps.
+    init_with(hvd, {"HOROVOD_STEP_TRACE_SLOTS": "4096"})
     out = {}
     try:
         if hvd.backend() != "nccl" or \
@@ -1799,7 +2292,12 @@ def cnn_phase(hvd, fa, qz, seed) -> dict:
                                   str(CNN_STEPS)] + base)
         launches = kernel_launches(fa, qz)
         check_losses("resnet50", res["losses"])
+        # Where the host's time goes in the timed steps, by the core's
+        # step-trace phases (data, not a check).
+        phases = step_trace_phase_sums(hvd.step_trace(),
+                                       *res["timed_unix_us"])
         out["resnet50"] = {
+            "step_trace_timed_steps": phases,
             **trainer_report(res, CNN_BATCH,
                              profile_train_step(res["step"])),
             "images_per_sec": res["images_per_sec_per_chip"],
@@ -2215,6 +2713,33 @@ def main() -> int:
                                   "are not a speed result",
                           "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    tmpdir = tempfile.mkdtemp(prefix="hvd_extras_")
+    try:
+        observed, secs = timed_phase(observed_world1, hvd, fa, args.seed,
+                                     tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    print(json.dumps({"phase": "spine_extras", "part": "world1_planes",
+                      "model": "GPT_SMALL", "batch": 8, "seq": 1024,
+                      "card": card, "seconds": secs, **observed}),
+          flush=True)
+    torch.cuda.empty_cache()
+    (extras0, extras1), secs = timed_phase(spine_extras_phase, args.seed,
+                                           gpu_operations)
+    for rep in (extras0, extras1):
+        print(json.dumps({"phase": "spine_extras", "part": "world2",
+                          "a2a_rs_shape": [A2A_ROWS, A2A_COLS],
+                          "sparse_tables": [[SPARSE_VOCAB, SPARSE_WIDTH],
+                                            [SPARSE_POSITIONS,
+                                             SPARSE_WIDTH]],
+                          "gpu_operations": gpu_operations,
+                          "note": "two ranks share one card: times are not "
+                                  "a speed result",
+                          "card": card, "seconds": secs, **rep}), flush=True)
+    torch.cuda.empty_cache()
     cnn2, secs = timed_phase(cnn_world2_phase, args.seed, gpu_operations)
     print(json.dumps({"phase": "cnn_world2", "model": "resnet50",
                       "batch_per_rank": CNN_W2_BATCH,
@@ -2253,6 +2778,8 @@ def main() -> int:
             "launches_cnn": cnn["resnet50"]["tpu_kernel_launches"][name],
             "launches_bert": bert["tpu_kernel_launches"][name],
             "launches_spine_world2": trainer[name],
+            "launches_spine_extras_world1":
+                observed["on"][-1]["launches"][name],
             "launches_world2_ef_trainer": ef["launches"][name]})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
         ms, plain, (bound_ms, bound_by), lib = codec_timing[name]
@@ -2270,7 +2797,9 @@ def main() -> int:
             "launches_cnn": cnn["resnet50"]["tpu_kernel_launches"][name],
             "launches_bert": bert["tpu_kernel_launches"][name],
             "launches_world2_collectives":
-                rank0["collectives"]["launches"][name]})
+                rank0["collectives"]["launches"][name],
+            "launches_spine_extras_a2a_rs":
+                extras0["collectives"]["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,7 +18,7 @@ import numpy as np
 
 from .exceptions import HorovodInternalError
 from .runtime import PROTOCOL_VERSION, CoreBackend, FusedResponse, TensorEntry
-from .utils.env import Config
+from .utils.env import Config, get_int
 from .wire import DataType, OpType, ReduceOp, wire_dtype
 
 _LOG_LEVELS = {"trace": 0, "debug": 1, "info": 2, "warning": 3, "error": 4,
@@ -163,6 +163,29 @@ class NativeCoreError(RuntimeError):
     pass
 
 
+def check_fault_spec(spec: str) -> str:
+    """Validate a ``HOROVOD_FAULT_INJECT`` spec against the core's parser:
+    "" when it is well formed, else the message ``hvd.init()`` would fail
+    with.  Loads (and on first use builds) the library; starts nothing."""
+    msg = load_library().hvd_fault_spec_check(spec.encode())
+    return msg.decode() if msg else ""
+
+
+def _json_call(fn) -> dict:
+    """Call a ``(buf, cap) -> n`` dump entry point, growing the buffer while
+    it answers -2; {} when it answers 0 (plane off) or -1 (no core)."""
+    cap = 1 << 16
+    buf = ctypes.create_string_buffer(cap)
+    n = fn(buf, cap)
+    while n == -2:
+        cap *= 4
+        buf = ctypes.create_string_buffer(cap)
+        n = fn(buf, cap)
+    if n <= 0:
+        return {}
+    return json.loads(buf.raw[:n].decode())
+
+
 class NativeCore(CoreBackend):
     """The C++ core as a CoreBackend: negotiation, fusion, the response
     cache, stall inspection and the host data plane run natively; Python
@@ -229,8 +252,24 @@ class NativeCore(CoreBackend):
             raise NativeCoreError(
                 f"native core init failed (rc={rc}, control protocol "
                 f"v{PROTOCOL_VERSION}): {self._last_error()}")
+        # The elastic generation a launcher assigned (0 outside elastic
+        # jobs) as the hvd_elastic_generation gauge, and the quantized
+        # collectives' wire bytes into the metrics registry.
+        self._lib.hvd_elastic_generation_set(
+            get_int("HOROVOD_ELASTIC_GENERATION", 0))
+        from .ops import quantize
+
+        quantize.set_native_byte_sink(self._lib.hvd_device_plane_note)
+
+    def step_trace_note_plane(self, plane: int) -> None:
+        """Tag the step-trace ring with the data plane running the steps
+        (-1 unknown, 0 eager, 1 gspmd)."""
+        self._lib.hvd_step_trace_note_plane(int(plane))
 
     def shutdown(self) -> None:
+        from .ops import quantize
+
+        quantize.set_native_byte_sink(None)
         if self._lib.hvd_is_initialized():
             self._lib.hvd_shutdown()
 
@@ -436,6 +475,15 @@ class NativeCore(CoreBackend):
                                         ctypes.byref(recv))
         return {"ctrl_sent": sent.value, "ctrl_recv": recv.value}
 
+    def ctrl_plane_stats(self) -> dict:
+        """Cumulative negotiation frames and payload bytes this rank sent
+        and received on the control plane."""
+        vals = [ctypes.c_longlong() for _ in range(4)]
+        self._lib.hvd_ctrl_plane_stats(*map(ctypes.byref, vals))
+        return dict(zip(("ctrl_msgs_sent", "ctrl_msgs_recv",
+                         "ctrl_bytes_sent", "ctrl_bytes_recv"),
+                        (v.value for v in vals)))
+
     def data_plane_stats(self) -> dict:
         """Cumulative host-ring bytes this rank sent (on the wire and before
         the host codec), to ranks on this host and across hosts."""
@@ -444,3 +492,36 @@ class NativeCore(CoreBackend):
         return dict(zip(("data_sent_local", "data_sent_xhost",
                          "data_raw_local", "data_raw_xhost"),
                         (v.value for v in vals)))
+
+    def metrics(self) -> dict:
+        """The metrics registry as a dict: counters, gauges and
+        power-of-two-bucket histograms; on the coordinator also the
+        cluster view and the straggler report.  Under ``HOROVOD_METRICS``
+        off, ``enabled`` is False and the core's counters stay 0."""
+        return _json_call(self._lib.hvd_metrics_dump)
+
+    def flight_record(self) -> dict:
+        """This rank's flight-recorder ring: ``rank``, ``host``, ``slots``,
+        ``dropped``, ``types`` (the event-type legend) and ``events`` as
+        ``[ts_us, seq, type, tid, a, b]`` rows, oldest first.  {} when
+        ``HOROVOD_FLIGHT_RECORDER=off``."""
+        return _json_call(self._lib.hvd_flight_record)
+
+    def step_trace(self) -> dict:
+        """This rank's step-trace ring: ``schema``, ``rank``, ``world``,
+        ``phases`` and ``steps`` as ``[step, start_us, end_us, <5 phase
+        us>]`` rows; rank 0 adds ``fleet``.  {} when
+        ``HOROVOD_STEP_TRACE=off``."""
+        return _json_call(self._lib.hvd_step_trace)
+
+    def fleet_history(self) -> dict:
+        """The coordinator's fleet history and anomaly log
+        (``fleethistory-v1``); {} before its first tick, on other ranks, or
+        when ``HOROVOD_FLEET_TELEMETRY=off``."""
+        return _json_call(self._lib.hvd_fleet_history)
+
+    def start_timeline(self, path: str, mark_cycles: bool) -> None:
+        self._lib.hvd_start_timeline(path.encode(), 1 if mark_cycles else 0)
+
+    def stop_timeline(self) -> None:
+        self._lib.hvd_stop_timeline()

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
 import socket
 from typing import Optional, Sequence, Union
 
@@ -222,6 +223,144 @@ def wire_device() -> torch.device:
     host under gloo."""
     rt = _get()
     return rt.device if rt.backend == "nccl" else torch.device("cpu")
+
+
+def num_devices() -> int:
+    """CUDA devices this process sees; 1 for a CPU run (a rank initialized
+    with ``device="cpu"``, or no CUDA device at all), whose one device is
+    the host."""
+    if (_runtime is not None and _runtime.device.type == "cpu") or \
+            not torch.cuda.is_available():
+        return 1
+    return torch.cuda.device_count()
+
+
+# -- observability ------------------------------------------------------------
+
+def _core():
+    from .context import HorovodContext
+
+    return HorovodContext.instance().core
+
+
+def metrics() -> dict:
+    """This rank's metrics-registry snapshot: counters (cycles, fusion,
+    stall warnings, the device plane's quantized wire bytes) and
+    power-of-two-bucket histograms (negotiation wait, ring hops); rank 0
+    adds ``cluster`` and ``straggler_report``.  The core counts only under
+    ``HOROVOD_METRICS=1`` (``enabled``); empty on the pure-Python core."""
+    return _core().metrics()
+
+
+def metrics_prometheus() -> str:
+    """The :func:`metrics` snapshot in Prometheus text exposition format
+    (``hvd_*`` families, the JAX package's names)."""
+    from .utils.metrics import render_prometheus
+
+    return render_prometheus(metrics())
+
+
+def flight_record() -> dict:
+    """This rank's flight-recorder ring, the always-on event black box:
+    ``rank``, ``host``, ``slots``, ``dropped``, ``types`` (the event-type
+    legend) and ``events`` as ``[ts_us, seq, type, tid, a, b]`` rows,
+    oldest first.  Empty under ``HOROVOD_FLIGHT_RECORDER=off``."""
+    return _core().flight_record()
+
+
+def step_trace() -> dict:
+    """This rank's causal step trace: ``rank``, ``world``, ``phases``
+    (negotiation_wait, fusion, ring, fence, idle) and ``steps`` as
+    ``[step, start_us, end_us, <5 phase us>]`` rows; rank 0 adds ``fleet``,
+    the per-step cross-rank sums.  Empty under ``HOROVOD_STEP_TRACE=off``."""
+    return _core().step_trace()
+
+
+def fleet_history() -> dict:
+    """The coordinator's fleet history and anomaly log
+    (``fleethistory-v1``): meaningful on rank 0; empty under
+    ``HOROVOD_FLEET_TELEMETRY=off``."""
+    return _core().fleet_history()
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Write the core's Chrome-trace timeline (negotiation and data-plane
+    phases of every named collective) to ``file_path`` from now on."""
+    _core().start_timeline(file_path, mark_cycles)
+
+
+def stop_timeline() -> None:
+    _core().stop_timeline()
+
+
+_device_trace = None
+
+
+def start_device_trace(logdir: str) -> None:
+    """Start ``torch.profiler`` over CPU and, where there is a card, CUDA
+    activity: the on-device half of observability, beside the host
+    timeline.  :func:`stop_device_trace` writes it under ``logdir``."""
+    global _device_trace
+    if _device_trace is not None:
+        raise RuntimeError("a device trace is already running")
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    _device_trace = (prof, str(logdir))
+
+
+def stop_device_trace() -> str:
+    """Stop the device trace and write it as a Chrome trace,
+    ``<logdir>/device_trace.rank<r>.<pid>.json``; returns its path."""
+    global _device_trace
+    if _device_trace is None:
+        raise RuntimeError("no device trace is running")
+    prof, logdir = _device_trace
+    _device_trace = None
+    prof.stop()
+    os.makedirs(logdir, exist_ok=True)
+    rank = _runtime.cfg.rank if _runtime is not None else 0
+    path = os.path.join(logdir, f"device_trace.rank{rank}.{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+# -- build queries ------------------------------------------------------------
+# What this package is built with: collectives over NCCL (on a card) or gloo,
+# kernels in CUDA.  No MPI, DDL, oneCCL, ROCm or TPU build exists.
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def tpu_built() -> bool:
+    return False
+
+
+def gloo_enabled() -> bool:
+    return dist.is_gloo_available()
 
 
 def native_core_built() -> bool:

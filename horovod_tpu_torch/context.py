@@ -170,6 +170,8 @@ class HorovodContext:
         self.stats = {"responses": 0, "tensors": 0}
         self.last_enqueue_at = 0.0
         self.core.start(dataclasses.replace(cfg, rendezvous_port=core_port))
+        # The step trace's plane tag: the eager plane, the port's only one.
+        self.core.step_trace_note_plane(0)
         self.device_plane = DevicePlane(self.core, cfg, device, backend)
         # Set 0 runs on the default (world) group.
         self.device_plane.register(0, None, range(cfg.size))

@@ -23,13 +23,17 @@ def run(step: Callable[[], torch.Tensor], steps: int,
         warmup: int = 1) -> Dict[str, List[float]]:
     """``warmup`` then ``steps`` calls of ``step`` (one optimizer step that
     returns its loss).  Each step ends in a host readback of the loss
-    averaged over the ranks, so its host time bounds its device work."""
+    averaged over the ranks, so its host time bounds its device work.
+    ``timed_unix_us`` is the wall-clock span of the timed steps, the clock
+    of ``hvd.step_trace()``'s rows."""
     for _ in range(warmup):
         mpi_ops.allreduce(step().detach(), name="trainer.loss").item()
     losses, step_ms = [], []
+    since = time.time_ns() // 1000
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = mpi_ops.allreduce(step().detach(), name="trainer.loss").item()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
-    return {"losses": losses, "step_ms": step_ms}
+    return {"losses": losses, "step_ms": step_ms,
+            "timed_unix_us": (since, time.time_ns() // 1000)}

@@ -51,6 +51,17 @@ def broadcast_object(obj: Any, root_rank: int = 0, name: Optional[str] = None,
     return pickle.loads(payload.tobytes())
 
 
+def broadcast_object_fn(root_rank: int = 0, name: Optional[str] = None,
+                        process_set: Optional[ProcessSet] = None):
+    """A one-argument function that broadcasts its argument from
+    ``root_rank``, as :func:`broadcast_object` does."""
+    def _fn(obj):
+        return broadcast_object(obj, root_rank=root_rank, name=name,
+                                process_set=process_set)
+
+    return _fn
+
+
 def allgather_object(obj: Any, name: Optional[str] = None,
                      process_set: Optional[ProcessSet] = None) -> list:
     """Gather one picklable object per rank into a rank-ordered list."""

@@ -10,7 +10,8 @@ the device plane (NCCL, or gloo on the CPU); a numpy array, or a CPU tensor
 on a card rank, rides the core's host ring.  ``*_async`` returns an int
 handle; ``synchronize(handle)`` blocks and returns the result (writing it
 into the input first for the in-place ``*_`` forms); ``poll(handle)`` tests
-for completion.
+for completion.  ``sparse_allreduce`` reduces a sparse COO tensor by
+gathering every rank's indices and values.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from .compression import Compression
 from .context import HorovodContext
-from .process_sets import ProcessSet, _resolve_psid
+from .process_sets import ProcessSet, _resolve_psid, effective_size
 from .wire import (Adasum, Average, Max, Min, OpType, Product,  # noqa: F401
                    ReduceOp, Sum)
 
@@ -337,6 +338,70 @@ def grouped_reducescatter(tensors: Sequence, op: ReduceOp = ReduceOp.AVERAGE,
     return [synchronize(h) for h in grouped_reducescatter_async(
         tensors, op=op, name=name, prescale_factor=prescale_factor,
         postscale_factor=postscale_factor, process_set=process_set)]
+
+
+# --- sparse allreduce ---------------------------------------------------------
+
+def sparse_allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
+                           op: Optional[ReduceOp] = None,
+                           process_set: Optional[ProcessSet] = None):
+    """Start the allreduce of a sparse COO tensor; returns a token for
+    :func:`sparse_synchronize`.  Two ragged allgathers are enqueued at once,
+    ``{name}.idx`` with the indices transposed to (nnz, sparse_dim) and
+    ``{name}.vals`` with the values; a rank that touched no row sends zero
+    rows and still takes part."""
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce requires a sparse COO tensor")
+    rop = _resolve_op(op, None)
+    if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("sparse_allreduce supports Sum and Average only")
+    sp = tensor.coalesce()
+    h_idx = allgather_async(sp.indices().t().contiguous(),
+                            name=f"{name}.idx" if name else None,
+                            process_set=process_set)
+    h_vals = allgather_async(sp.values().contiguous(),
+                             name=f"{name}.vals" if name else None,
+                             process_set=process_set)
+    return (h_idx, h_vals, tuple(sp.shape), rop, process_set)
+
+
+def sparse_synchronize(token) -> torch.Tensor:
+    """Finish :func:`sparse_allreduce_async`: every rank's (indices, values)
+    summed into one coalesced sparse tensor; Average then divides the values
+    by the set's size.  When the indices' gather fails, the values' handle
+    is waited out and dropped before the error propagates."""
+    h_idx, h_vals, shape, rop, process_set = token
+    try:
+        idx = synchronize(h_idx)
+    except BaseException:
+        try:
+            synchronize(h_vals)
+        except Exception:  # noqa: BLE001 - the indices' error is the one
+            pass
+        raise
+    vals = synchronize(h_vals)
+    out = torch.sparse_coo_tensor(idx.t(), vals, shape,
+                                  check_invariants=False).coalesce()
+    if rop == ReduceOp.AVERAGE:
+        v = out.values()
+        # A tensor divisor: CUDA divides by a Python scalar through its
+        # reciprocal, which is not correctly rounded.
+        v.div_(torch.tensor(effective_size(process_set), dtype=v.dtype,
+                            device=v.device))
+    return out
+
+
+def sparse_allreduce(tensor: torch.Tensor, name: Optional[str] = None,
+                     op: Optional[ReduceOp] = None,
+                     process_set: Optional[ProcessSet] = None
+                     ) -> torch.Tensor:
+    """Allreduce a sparse COO tensor (the gradient of an
+    ``nn.Embedding(sparse=True)``) by gathering every rank's indices and
+    values and summing them: fewer bytes than the dense allreduce while the
+    rows touched are few.  Average (the default) divides by the set's
+    size.  Returns a coalesced sparse tensor."""
+    return sparse_synchronize(sparse_allreduce_async(
+        tensor, name=name, op=op, process_set=process_set))
 
 
 # --- barrier / join ----------------------------------------------------------

@@ -13,6 +13,10 @@ where they are, except that gloo takes host tensors only: under
 ``HOROVOD_GPU_OPERATIONS=GLOO`` a card's tensors are staged through host
 memory for each transfer, and the kernels still run on the card.
 
+``quantized_alltoall`` and ``quantized_reducescatter`` (the MoE dispatch
+and a ZeRO-style gradient scatter) encode once per destination chunk and
+once per reduce-scatter hop respectively.
+
 Two callers run these rings.  The device plane (``ops/device_plane.py``)
 runs ``_quantized_ring_allreduce_sum`` on a negotiated fused bucket under
 ``HOROVOD_WIRE_COMPRESSION=device=<codec>``, on the executor's thread and
@@ -457,3 +461,95 @@ def quantized_broadcast(tensor: torch.Tensor, root_rank: int,
     out = qz.dequantize(payload[0], payload[1], length, codec)
     qz.note_device_bytes(length * 4, qz.encoded_nbytes(length, codec))
     return out.reshape(tensor.shape)
+
+
+def _alltoall_exchange(ring, payloads: Sequence) -> List:
+    """``payloads[d]`` goes to the rank at position d; returns the payloads
+    received, indexed by the position they came from.  Round t sends to
+    position ``rank + t`` and receives from ``rank - t``, so each round is
+    one ring exchange; the own payload stays where it is."""
+    n, me = ring.size, ring.rank
+    got = [None] * n
+    got[me] = payloads[me]
+    for t in range(1, n):
+        dst, src = (me + t) % n, (me - t) % n
+        leaves = ring.exchange(_flatten(payloads[dst]), dst, src)
+        got[src] = _unflatten(payloads[dst], iter(leaves))
+    return got
+
+
+def _quantized_alltoall(ring, x: torch.Tensor, codec: str) -> torch.Tensor:
+    """Each rank encodes each of its ``world`` destination chunks with
+    scales of its own, its own chunk included; the encodings cross and
+    every received chunk, the own one included, is decoded: exactly one
+    quantization step end to end, as the reference's."""
+    n = ring.size
+    rows = x.reshape(n, -1)
+    c = rows.shape[1]
+    got = _alltoall_exchange(ring, [qz.quantize(rows[d], codec)
+                                    for d in range(n)])
+    out = torch.stack([qz.dequantize(p[0], p[1], c, codec) for p in got])
+    qz.note_device_bytes((n - 1) * c * 4,
+                         (n - 1) * qz.encoded_nbytes(c, codec))
+    return out.reshape(x.shape)
+
+
+def quantized_alltoall(tensor: torch.Tensor, min_bytes: Optional[int] = None,
+                       codec: Optional[str] = None) -> torch.Tensor:
+    """Equal-splits alltoall of block-scaled encodings, the MoE dispatch and
+    combine path: dim 0 is cut into ``world`` chunks, chunk d goes to rank
+    d, and the chunks received are concatenated in rank order.  An
+    ineligible tensor (not fp32, under ``min_bytes``, dim 0 not divisible
+    by the world size, or 0-d) takes the plain alltoall, bit-identically.
+    ``min_bytes`` and ``codec`` default as in :func:`quantized_allreduce`.
+    """
+    if min_bytes is None:
+        min_bytes = _device_codec_defaults()[1]
+    ring = _caller_ring()
+    if not quantized_collective_eligible(tensor, ring.size, min_bytes,
+                                         divisor=ring.size):
+        from .device_plane import plain_alltoall
+
+        return plain_alltoall(tensor, ring)
+    return _quantized_alltoall(ring, tensor, _resolve_explicit_codec(codec))
+
+
+def _quantized_reducescatter(ring, x: torch.Tensor, op: ReduceOp,
+                             codec: str) -> torch.Tensor:
+    """The reduce-scatter half of the quantized ring, started at offset -1
+    so that the rank at position r ends with row r, summed in fp32 between
+    hops."""
+    n = ring.size
+    rows = x.reshape(n, -1)
+    c = rows.shape[1]
+    acc = _ring_reduce_scatter(ring, rows, n, ring.rank, -1, +1,
+                               _permutation(n, lambda i: (i + 1) % n), codec)
+    qz.note_device_bytes((n - 1) * c * 4,
+                         (n - 1) * qz.encoded_nbytes(c, codec))
+    if op == ReduceOp.AVERAGE:
+        acc = qz._div(acc, n)
+    return acc.reshape((x.shape[0] // n,) + tuple(x.shape[1:]))
+
+
+def quantized_reducescatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                            min_bytes: Optional[int] = None,
+                            codec: Optional[str] = None) -> torch.Tensor:
+    """Reduce-scatter through the block-scaled ring: rank r gets the r-th of
+    ``world`` equal chunks of dim 0, reduced over the ranks.  Sum and
+    Average only (Average divides by the world size); an ineligible tensor
+    takes the plain reducescatter, bit-identically.  ``min_bytes`` and
+    ``codec`` default as in :func:`quantized_allreduce`."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(
+            f"quantized_reducescatter supports Sum and Average, got {op}")
+    if min_bytes is None:
+        min_bytes = _device_codec_defaults()[1]
+    ring = _caller_ring()
+    if not quantized_collective_eligible(tensor, ring.size, min_bytes,
+                                         divisor=ring.size):
+        from .device_plane import plain_reducescatter
+
+        return plain_reducescatter(tensor, op, ring)
+    return _quantized_reducescatter(ring, tensor, op,
+                                    _resolve_explicit_codec(codec))

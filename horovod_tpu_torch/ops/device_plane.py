@@ -147,6 +147,42 @@ def plain_allgather(t: torch.Tensor, counts: Sequence[int],
     return torch.cat([p[:c] for p, c in zip(parts, counts)]).to(t.device)
 
 
+def _equal_rows(t: torch.Tensor, what: str, k: int) -> int:
+    """dim 0 of ``t`` over ``k`` equal chunks, or the reference's refusal."""
+    if t.dim() == 0 or t.shape[0] % k:
+        raise ValueError(f"{what} needs a dim 0 divisible by the "
+                         f"{k} ranks, got shape {tuple(t.shape)}")
+    return t.shape[0] // k
+
+
+def plain_alltoall(t: torch.Tensor, ring: GroupRing) -> torch.Tensor:
+    """Equal-splits alltoall of ``t`` over the ring's group: chunk d of dim
+    0 goes to member d; the chunks received are concatenated in member
+    order."""
+    _equal_rows(t, "alltoall", ring.size)
+    src = _to_wire(t.contiguous(), ring)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=ring.group)
+    return out.to(t.device)
+
+
+def plain_reducescatter(t: torch.Tensor, rop: ReduceOp,
+                        ring: GroupRing) -> torch.Tensor:
+    """Sum (or Average, divided by the group's size, correctly rounded) of
+    ``t`` over the ring's group, keeping this member's equal chunk of
+    dim 0."""
+    rows = _equal_rows(t, "reducescatter", ring.size)
+    src = _to_wire(t.contiguous().reshape(-1), ring)
+    out = torch.empty(src.numel() // ring.size, dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                               group=ring.group)
+    out = out.to(t.device)
+    if ReduceOp(rop) == ReduceOp.AVERAGE:
+        out = qz._div(out, ring.size)
+    return out.reshape((rows,) + tuple(t.shape[1:]))
+
+
 class DevicePlane:
     """Executes negotiated ``device=True`` responses on the process sets'
     groups."""

@@ -41,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -140,12 +140,24 @@ def ring_bytes(count: int, world: int, codec: str = "int8",
 
 _DEV_LOCK = threading.Lock()
 _DEV_BYTES = [0, 0]   # raw, encoded
+_NATIVE_SINK: Optional[Callable[[int, int], None]] = None
+
+
+def set_native_byte_sink(fn: Optional[Callable[[int, int], None]]) -> None:
+    """Forward every (raw, encoded) delta to ``fn`` as well: the native
+    core's ``hvd_device_plane_note``, so the device plane's bytes reach its
+    metrics registry (``hvd.metrics()``, Prometheus).  None stops it."""
+    global _NATIVE_SINK
+    _NATIVE_SINK = fn
 
 
 def note_device_bytes(raw: int, encoded: int) -> None:
     with _DEV_LOCK:
         _DEV_BYTES[0] += int(raw)
         _DEV_BYTES[1] += int(encoded)
+    sink = _NATIVE_SINK
+    if sink is not None:
+        sink(int(raw), int(encoded))
 
 
 def device_byte_counters() -> Tuple[int, int]:

@@ -15,6 +15,14 @@ order) or ``groups=[[params...], ...]`` makes fusion groups: a group is
 enqueued when every member's gradient is ready and negotiates as one
 atomic unit, under a name derived from its members' names.
 
+A sparse gradient (``nn.Embedding(sparse=True)``) rides
+``hvd.sparse_allreduce`` on its own, out of any fusion group;
+``sparse_as_dense=True`` densifies it for the dense path instead, and
+``sparse_params=[names]`` declares such parameters up front, so that a rank
+whose batch skipped one still sends a zero-nnz sparse collective.  Error
+feedback and ZeRO-1 take dense gradients only: a sparse one raises there
+unless ``sparse_as_dense=True``.
+
 ``backward_passes_per_step=k`` lets k backward passes accumulate locally
 before one reduction, prescaled by ``1/k`` so the reduced gradient is the
 mean over passes as well as ranks.  ``gradient_predivide_factor=f`` splits
@@ -71,6 +79,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                  op: ReduceOp = ReduceOp.AVERAGE,
                  gradient_predivide_factor: float = 1.0,
                  process_set: Optional[ProcessSet] = None,
+                 sparse_as_dense: bool = False, sparse_params=None,
                  num_groups: Optional[int] = None, groups=None,
                  ef_codec: str = "none"):
         super(self.__class__, self).__init__(params)
@@ -99,6 +108,21 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._process_set = process_set
         self._handles: dict = {}  # param id -> (handle, ctx, wire tensor, p)
         self._passes: dict = {}   # param id -> local backward passes
+        # Parameters whose gradients are sparse: learned from the first
+        # sparse gradient a hook sees, or declared by name up front, so that
+        # a rank whose batch skipped the layer still sends a (zero-nnz)
+        # sparse collective and not a dense one its peers never match.
+        self._sparse_as_dense = bool(sparse_as_dense)
+        self._sparse_params: set = set()
+        name_to_pid = {n: pid for pid, n in self._param_names.items()}
+        for n in (sparse_params or ()):
+            if n not in name_to_pid:
+                raise ValueError(
+                    f"sparse_params entry {n!r} is not a known parameter "
+                    f"name")
+            self._sparse_params.add(name_to_pid[n])
+        if self._sparse_params and ef_codec != "none":
+            raise ValueError(_ef_sparse_message(ef_codec, sparse_params))
         # Fusion groups (reference: num_groups/groups, group_table.cc).
         if groups is not None and num_groups is not None:
             raise ValueError("specify either num_groups or groups, not both")
@@ -111,8 +135,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         elif num_groups:
             # Contiguous chunks in registration order (upstream's
             # split_list): groups late in backward enqueue while earlier
-            # layers still compute.
-            pids = [id(p) for p in self._requires_update]
+            # layers still compute.  Sparse parameters ride
+            # sparse_allreduce one by one.
+            pids = [id(p) for p in self._requires_update
+                    if id(p) not in self._sparse_params]
             n = min(max(1, int(num_groups)), max(1, len(pids)))
             per, extra = divmod(len(pids), n)
             off = 0
@@ -171,10 +197,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def _allreduce_grad_async(self, p: torch.nn.Parameter) -> None:
         pid = id(p)
+        if p.grad.is_sparse and self._sparse_as_dense:
+            with torch.no_grad():
+                p.grad = p.grad.to_dense()
         if p.grad.is_sparse:
-            raise NotImplementedError(
-                "sparse gradients are not ported yet (ROADMAP Queue 1 "
-                "item 1)")
+            self._sparse_allreduce_async(p)
+            return
         g = self._group_of.get(pid)
         if self._ef_eligible(p):
             self._ef_ready.add(pid)  # its ring runs in synchronize()
@@ -182,8 +210,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             # Enqueued once every member's gradient is locally ready; the
             # group then negotiates atomically.
             self._group_fired[g].add(pid)
-            if len(self._group_fired[g]) == len(self._group_members[g]):
-                self._enqueue_group(g)
+            self._maybe_enqueue_group(g)
             return
         if pid in self._ef_ready:
             return
@@ -194,6 +221,38 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             prescale_factor=prescale, postscale_factor=postscale,
             process_set=self._process_set)
         self._handles[pid] = (h, ctx, wire, p)
+
+    def _sparse_allreduce_async(self, p: torch.nn.Parameter) -> None:
+        """A sparse gradient (``nn.Embedding(sparse=True)``) rides
+        ``sparse_allreduce`` on its own, under the parameter's name."""
+        pid = id(p)
+        if self._ef_codec != "none":
+            raise ValueError(_ef_sparse_message(
+                self._ef_codec, [self._param_names[pid]]))
+        if self._predivide != 1.0:
+            raise ValueError("gradient_predivide_factor is not supported "
+                             "for sparse gradients")
+        g = self._group_of.pop(pid, None)
+        if g is not None:
+            # Out of its fusion group (every rank drops the same member);
+            # the shrunk group may be complete now.
+            self._group_members[g].remove(pid)
+            self._group_fired[g].discard(pid)
+            self._maybe_enqueue_group(g)
+        self._sparse_params.add(pid)
+        grad = p.grad.coalesce()
+        if self._bpps > 1:
+            v = grad.values()
+            v.div_(torch.tensor(self._bpps, dtype=v.dtype, device=v.device))
+        token = mpi_ops.sparse_allreduce_async(
+            grad, name=self._param_names[pid], op=self._op,
+            process_set=self._process_set)
+        self._handles[pid] = ("sparse", token, None, p)
+
+    def _maybe_enqueue_group(self, g: int) -> None:
+        if self._group_members[g] and \
+                len(self._group_fired[g]) == len(self._group_members[g]):
+            self._enqueue_group(g)
 
     def _group_name(self, g: int) -> str:
         # From the members' parameter names, which match across ranks, so
@@ -235,7 +294,16 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if g is not None and pid in self._group_fired[g]:
                 continue  # its group completes with the fill-ins below
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                if pid in self._sparse_params:
+                    # A zero-nnz sparse contribution: the collectives the
+                    # other ranks enqueue under this name are sparse too.
+                    p.grad = torch.sparse_coo_tensor(
+                        torch.zeros((1, 0), dtype=torch.int64),
+                        torch.zeros((0,) + tuple(p.shape[1:]),
+                                    dtype=p.dtype),
+                        p.shape, device=p.device)
+                else:
+                    p.grad = torch.zeros_like(p)
             self._passes[pid] = 0
             self._allreduce_grad_async(p)
         try:
@@ -243,6 +311,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if id(p) in self._ef_ready:
                     self._reduce_with_error_feedback(p)
             for h, ctx, wire, p in self._handles.values():
+                if h == "sparse":
+                    p.grad = mpi_ops.sparse_synchronize(ctx)
+                    continue
                 restored = self._compression.decompress(
                     mpi_ops.synchronize(h), ctx)
                 if restored.data_ptr() != p.grad.data_ptr():
@@ -264,6 +335,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             corrected, self._ef_codec)
         with torch.no_grad():
             p.grad.copy_(reduced)
+
+    def set_backward_passes_per_step(self, passes: int) -> None:
+        """Reduce every ``passes`` backward passes from now on (at least
+        one), and restart the count of each parameter's passes."""
+        passes = max(1, int(passes))
+        if passes != 1 and self._ef_codec != "none":
+            raise ValueError(
+                f"device_compression={self._ef_codec!r} requires "
+                "backward_passes_per_step=1 (error feedback needs to see "
+                "every communicated gradient)")
+        self._bpps = passes
+        self._passes = {}
 
     @contextlib.contextmanager
     def skip_synchronize(self):
@@ -295,6 +378,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
+def _ef_sparse_message(codec: str, names) -> str:
+    return (f"device_compression={codec!r} (error feedback) cannot reduce "
+            f"the sparse gradients of {sorted(names)}: its quantized ring "
+            "takes dense fp32 gradients; pass sparse_as_dense=True, or "
+            "device_compression='none'")
+
+
 class _ShardedDistributedOptimizer(torch.optim.Optimizer):
     """ZeRO-1 (see the module docstring).  The optimizer's own
     ``param_groups`` hold this rank's slices of the fp32 master shard, one
@@ -305,15 +395,18 @@ class _ShardedDistributedOptimizer(torch.optim.Optimizer):
     ``broadcast_parameters``; later the parameters must change only
     through this optimizer, as in the reference."""
 
-    def __init__(self, param_groups, named_parameters, op: ReduceOp):
+    def __init__(self, param_groups, named_parameters, op: ReduceOp,
+                 sparse_as_dense: bool = False):
         self._zero_params = [p for g in param_groups for p in g["params"]]
+        self._zero_sparse_as_dense = bool(sparse_as_dense)
         if not self._zero_params:
             raise ValueError(
                 "shard_optimizer_states=True needs a non-empty parameter "
                 "list (nothing to shard)")
         names = {id(p): n for n, p in (named_parameters or [])}
-        sig = ",".join(names.get(id(p), f"allreduce.noname.{i}")
-                       for i, p in enumerate(self._zero_params))
+        self._zero_names = [names.get(id(p), f"allreduce.noname.{i}")
+                            for i, p in enumerate(self._zero_params)]
+        sig = ",".join(self._zero_names)
         self._zero_name = "hvd.zero1." + hashlib.sha1(
             sig.encode()).hexdigest()[:12]
         self._zero_op = ReduceOp(op)
@@ -359,9 +452,18 @@ class _ShardedDistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self) -> None:
         """Reduce-scatter the gradients into this rank's shard (the master
         slices' ``.grad``)."""
-        flat = self._zero_flat(
-            [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in self._zero_params])
+        grads = []
+        for p, name in zip(self._zero_params, self._zero_names):
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            if g.is_sparse:
+                if not self._zero_sparse_as_dense:
+                    raise ValueError(
+                        "shard_optimizer_states reduce-scatters one dense "
+                        f"fp32 vector; the gradient of {name!r} is sparse: "
+                        "pass sparse_as_dense=True")
+                g = g.to_dense()
+            grads.append(g)
+        flat = self._zero_flat(grads)
         with torch.no_grad():
             self._zero_grad.copy_(mpi_ops.reducescatter(
                 flat, op=self._zero_op, name=f"{self._zero_name}.grads"))
@@ -460,6 +562,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          op: ReduceOp = ReduceOp.AVERAGE,
                          gradient_predivide_factor: float = 1.0,
                          process_set=None,
+                         sparse_as_dense: bool = False,
+                         sparse_params=None,
                          num_groups: Optional[int] = None,
                          groups=None,
                          shard_optimizer_states: bool = False,
@@ -490,7 +594,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
         return _sharded(optimizer, named_parameters, compression,
                         backward_passes_per_step, op,
                         gradient_predivide_factor, process_set,
-                        device_compression, codec)
+                        device_compression, codec, sparse_as_dense,
+                        sparse_params)
     if codec != "none":
         if compression is not Compression.none:
             raise ValueError(
@@ -519,12 +624,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,
-               process_set, num_groups, groups, codec)
+               process_set, sparse_as_dense, sparse_params, num_groups,
+               groups, codec)
 
 
 def _sharded(optimizer, named_parameters, compression,
              backward_passes_per_step, op, gradient_predivide_factor,
-             process_set, device_compression, codec):
+             process_set, device_compression, codec, sparse_as_dense,
+             sparse_params):
     """ZeRO-1's refusals, with the reference's messages; a codec from the
     environment just opts out."""
     if codec != "none" and device_compression is not None:
@@ -549,6 +656,12 @@ def _sharded(optimizer, named_parameters, compression,
         raise ValueError(
             "shard_optimizer_states does not support process_set; it "
             "shards over every rank")
+    if sparse_params:
+        raise ValueError(
+            "shard_optimizer_states reduce-scatters one dense fp32 vector; "
+            f"it takes no sparse_params ({list(sparse_params)}): pass "
+            "sparse_as_dense=True")
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_ShardedDistributedOptimizer.__dict__))
-    return cls(optimizer.param_groups, list(named_parameters or []), op)
+    return cls(optimizer.param_groups, list(named_parameters or []), op,
+               sparse_as_dense)

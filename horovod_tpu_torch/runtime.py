@@ -283,6 +283,38 @@ class CoreBackend:
         a socket control plane)."""
         return {"ctrl_sent": 0, "ctrl_recv": 0}
 
+    def ctrl_plane_stats(self) -> dict:
+        """Cumulative control-plane frames and bytes (zero without a socket
+        control plane)."""
+        return {"ctrl_msgs_sent": 0, "ctrl_msgs_recv": 0,
+                "ctrl_bytes_sent": 0, "ctrl_bytes_recv": 0}
+
+    def metrics(self) -> dict:
+        """The metrics registry as a dict; {} without the native one."""
+        return {}
+
+    def flight_record(self) -> dict:
+        """The flight-recorder ring; {} without the native recorder."""
+        return {}
+
+    def step_trace(self) -> dict:
+        """The step-trace ring; {} without the native tracer."""
+        return {}
+
+    def fleet_history(self) -> dict:
+        """The fleet history; {} without the native telemetry plane."""
+        return {}
+
+    def step_trace_note_plane(self, plane: int) -> None:
+        """Tag the step trace with the data plane running the steps; a
+        no-op without the native tracer."""
+
+    def start_timeline(self, path: str, mark_cycles: bool) -> None:
+        raise NotImplementedError
+
+    def stop_timeline(self) -> None:
+        raise NotImplementedError
+
 
 class _ProcessSetTable:
     """Shared process-set bookkeeping (reference: process_set.cc ProcessSetTable)."""
@@ -363,6 +395,12 @@ class PyLocalCore(CoreBackend):
         self._shutdown.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+        self.timeline.stop()
+
+    def start_timeline(self, path: str, mark_cycles: bool) -> None:
+        self.timeline.start(path, mark_cycles)
+
+    def stop_timeline(self) -> None:
         self.timeline.stop()
 
     def rank(self) -> int:

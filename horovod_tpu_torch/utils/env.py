@@ -6,10 +6,13 @@ Own copy of the part of ``horovod_tpu/utils/env.py`` this package needs
 ``hvd_init`` takes -- and the ``HOROVOD_WIRE_COMPRESSION``,
 ``HOROVOD_DEVICE_SCHEDULE`` and ``HOROVOD_WIRE_COMPRESSION_MIN_BYTES``
 parsers), under the same variable names and defaults, so a launcher that
-starts ranks of the JAX package starts ranks of this one unchanged.  The
-core's observability planes (timeline, metrics, flight recorder, step
-trace) are off unless their variables turn them on: the port has no public
-API over them yet.  ``HOROVOD_GLOO_TIMEOUT_SECONDS`` is the reference
+starts ranks of the JAX package starts ranks of this one unchanged.  As
+there, the flight recorder and the step trace are on unless
+``HOROVOD_FLIGHT_RECORDER`` / ``HOROVOD_STEP_TRACE`` turn them off, and the
+timeline (``HOROVOD_TIMELINE``) and the metrics registry
+(``HOROVOD_METRICS``) are off unless turned on; ``hvd.metrics()``,
+``hvd.flight_record()``, ``hvd.step_trace()`` and ``hvd.start_timeline()``
+read them.  ``HOROVOD_GLOO_TIMEOUT_SECONDS`` is the reference
 Horovod's name for how long a collective waits for its peers, and
 ``HOROVOD_GPU_OPERATIONS`` its choice of the library that runs collectives
 on GPU tensors (``NCCL``, the default, or ``GLOO``).
@@ -103,7 +106,7 @@ class Config:
     metrics_enabled: bool = False
     metrics_file: Optional[str] = None
     metrics_interval_s: float = 10.0
-    flight_recorder_enabled: bool = False
+    flight_recorder_enabled: bool = True
     flight_recorder_slots: int = 4096
     postmortem_dir: Optional[str] = None
     log_level: str = "warning"
@@ -111,7 +114,7 @@ class Config:
     stall_warning_s: float = DEFAULT_STALL_WARNING_S
     stall_shutdown_s: float = 0.0  # 0 = never shut down
     autopilot_port: int = 0
-    step_trace_enabled: bool = False
+    step_trace_enabled: bool = True
     step_trace_slots: int = 256
     force_pure_python: bool = False
 
@@ -158,7 +161,7 @@ class Config:
             metrics_file=env.get("HOROVOD_METRICS_FILE"),
             metrics_interval_s=get_float("HOROVOD_METRICS_INTERVAL", 10.0),
             flight_recorder_enabled=get_bool("HOROVOD_FLIGHT_RECORDER",
-                                             False),
+                                             True),
             flight_recorder_slots=get_int("HOROVOD_FLIGHT_RECORDER_SLOTS",
                                           4096),
             postmortem_dir=env.get("HOROVOD_POSTMORTEM_DIR"),
@@ -170,7 +173,7 @@ class Config:
             stall_shutdown_s=get_float(
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
             autopilot_port=get_int("HOROVOD_AUTOPILOT_PORT", 0),
-            step_trace_enabled=get_bool("HOROVOD_STEP_TRACE", False),
+            step_trace_enabled=get_bool("HOROVOD_STEP_TRACE", True),
             step_trace_slots=get_int("HOROVOD_STEP_TRACE_SLOTS", 256),
             force_pure_python=get_bool("HVD_TPU_PURE_PY", False),
         )

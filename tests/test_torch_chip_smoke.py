@@ -84,3 +84,60 @@ def test_trainer_report_sets_busy_time_against_the_median_step():
     rep = chip_smoke.trainer_report(res, 64, {"device_ms": 8.0})
     assert rep["breakdown"]["idle_share"] == pytest.approx(0.2)
     assert rep["median_step_ms"] == 10.0 and rep["batch"] == 64
+
+
+_DUMP = {"rank": 0, "counters": {"responses_total": 3},
+         "gauges": {"elastic_generation": 1},
+         "histograms": {"negotiation_wait_us": {"buckets": [1, 2],
+                                                "sum_us": 5, "count": 3}}}
+
+
+def test_prometheus_families_counts_help_and_type_per_family():
+    from horovod_tpu_torch.utils.metrics import render_prometheus
+
+    fams = chip_smoke.prometheus_families(render_prometheus(_DUMP))
+    assert fams == {"hvd_responses_total": [1, 1],
+                    "hvd_elastic_generation": [1, 1],
+                    "hvd_negotiation_wait_us": [1, 1]}
+
+
+@pytest.mark.parametrize("text", [
+    'hvd_x_total{rank="0"} 1\n',                          # no metadata
+    "# HELP hvd_x x\n# TYPE hvd_x gauge\n# TYPE hvd_x gauge\nhvd_x 1\n",
+    "# HELP hvd_x x\n# TYPE hvd_x gauge\nhvd_x{rank=0} 1\n",  # bad label
+])
+def test_prometheus_families_refuses_malformed_text(text):
+    with pytest.raises(AssertionError):
+        chip_smoke.prometheus_families(text)
+
+
+def test_step_trace_phase_sums_takes_the_rows_of_the_window():
+    trace = {"phases": chip_smoke.STEP_PHASES, "steps": [
+        [0, 90, 99, 1, 1, 1, 1, 1, 0],
+        [1, 100, 110, 2, 0, 3, 0, 5, 0],
+        [2, 110, 130, 4, 1, 0, 0, 6, 0],
+        [3, 131, 140, 9, 9, 9, 9, 9, 0]]}
+    got = chip_smoke.step_trace_phase_sums(trace, 100, 130)
+    assert got == {"rows": 2, "phase_us": {
+        "negotiation_wait": 6, "fusion": 1, "ring": 3, "fence": 0,
+        "idle": 11}}
+
+
+@pytest.mark.parametrize("kind,codec,want", [
+    ("alltoall", "int8", {"quant_int8": 2, "quant_int4": 0, "dequant": 2}),
+    ("alltoall", "int4", {"quant_int8": 0, "quant_int4": 2, "dequant": 2}),
+    ("reducescatter", "int8g",
+     {"quant_int8": 1, "quant_int4": 0, "dequant": 1}),
+])
+def test_extras_launches_follow_the_schedule(kind, codec, want):
+    assert chip_smoke.extras_launches(kind, codec) == want
+
+
+def test_extras_bytes_count_one_chunk_a_peer():
+    from horovod_tpu_torch.ops import quantize as qz
+
+    c = chip_smoke.A2A_ROWS * chip_smoke.A2A_COLS // 2
+    assert chip_smoke.extras_bytes("int4") == (c * 4,
+                                               qz.encoded_nbytes(c, "int4"))
+    # 25.2 MB a rank: the MoE dispatch of one 8 x 1024 batch at width 768.
+    assert 2 * c * 4 == 25_165_824
