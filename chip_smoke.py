@@ -132,6 +132,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    printed beside the dense tables'.  (d) The ``cnn`` phase prints the step
    trace's phase sums over ResNet-50's timed steps.
 
+12. The parallel layers (``parallel``), two ranks on ``cuda:0`` as in 6.
+   (a) The sequence-parallel trainer of
+   ``horovod_tpu_torch.examples.gpt_long_context``: GPT_SMALL with
+   ``sp_use_flash``, a ``{"dp": 1, "sp": 2}`` mesh, 2 x 2048 tokens (1024
+   a rank), ``broadcast_parameters`` and ``DistributedOptimizer(AdamW)``,
+   3 steps: K4, K5 and K6 launched once a layer on rank 0 (the diagonal
+   hop; its other hop is in the future) and twice on rank 1, exactly, each
+   step; every K5 launch fed the ring merge's lse cotangent, non-zero on
+   rank 1 (rank 0's diagonal merges only with a future chunk, so its
+   output does not depend on lse and the cotangent is exactly 0);
+   the averaged loss falling and the parameters bitwise equal across the
+   ranks after every step; the first step's averaged gradients of three
+   leaves held against a one-process replay of the whole sequences with
+   dense attention (``PAR_GRAD_TOL``).  (b) ``examples.bert_pretraining
+   --large --seq-parallel --sp-flash`` at BERT-Large's width, its depth
+   cut to 3 layers, 2 x 2048 tokens, 2 steps: non-causal hops, 2 launches
+   a layer on each rank, parameters bitwise equal across ranks.  (c)
+   Ulysses, ``tp_mlp``, ``vocab_parallel_embedding``, ``gpipe`` and
+   ``switch_moe`` on card tensors at axis size 2, each output and one
+   gradient against its dense one-process version (``LAYER_TOL``), with
+   no K1-K6 launch.
+
 Each phase prints its seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2549,6 +2571,394 @@ def cnn_world2_phase(seed, gpu_operations) -> dict:
             "bn_replay_tol": BN_REPLAY_TOL, "zero1_tol": ZERO_W2_TOL}
 
 
+# ---------------------------------------------------------------------------
+# The parallel layers: GPT-2 small and BERT-Large sequence-parallel on the
+# flash kernels at every ring hop, and the tensor, pipeline and expert
+# parallel layers, two ranks on the one card.
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3
+PAR_BATCH = 2           # sequences of the GPT trainer's batch
+PAR_SEQ = 2048          # tokens a sequence: 1024 a rank at sp = 2
+PAR_LEAVES = ("h.0.attn.qkv.weight", "h.11.mlp_in.weight", "wpe.weight")
+# The trainer's first averaged gradients against a one-process replay of
+# the whole 2048-token sequences with dense attention, held by
+# ||ring - replay|| / ||replay|| per leaf: bf16 activations rounded in other
+# places through 12 layers (the 2-layer flash-vs-dense check measured
+# 4.6e-3 on the layer-0 qkv gradient); the loss by its absolute difference.
+PAR_GRAD_TOL = 3e-2
+PAR_LOSS_TOL = 1e-2
+BERT_SP_LAYERS = 3      # BERT-Large's width, its depth cut to fit the phase
+BERT_SP_BATCH = 2
+BERT_SP_SEQ = 2048
+BERT_SP_STEPS = 2
+# (c): each layer and one gradient against its dense one-process version,
+# fp32 on both sides with TF32 off; sums in other orders only.  Held by
+# ||parallel - dense|| / ||dense||.
+LAYER_TOL = 1e-4
+
+
+def ring_launches(rank: int, world: int, layers: int, causal: bool) -> int:
+    """Launches of each flash kernel (K4, K5, K6) in one train step on
+    ``rank`` of a ring of ``world``: one per layer for every hop whose chunk
+    is not in the future (the diagonal and the ``rank`` chunks before it
+    when causal, all ``world`` otherwise)."""
+    return layers * (rank + 1 if causal else world)
+
+
+def split_loss(lm_loss, logits, ids, sp: int):
+    """The mean over ``sp`` sequence shards of each shard's own LM loss,
+    from logits of the whole sequences: the loss the sequence-parallel
+    trainer's ranks average, each shift staying inside its shard."""
+    s = ids.shape[1] // sp
+    return sum(lm_loss(logits[:, i * s:(i + 1) * s], ids[:, i * s:(i + 1) * s])
+               for i in range(sp)) / sp
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm() /
+            want.float().norm().clamp_min(1e-30)).item()
+
+
+def parallel_rank(rank, port, seed, gpu_operations, tmpdir, queue):
+    """One of two ranks on ``cuda:0``: the sequence-parallel GPT and BERT
+    trainers, then the other layers; puts its report on ``queue``."""
+    import traceback
+
+    os.environ.update(
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+        HOROVOD_GPU_OPERATIONS=gpu_operations)
+    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_DEVICE_SCHEDULE",
+                "HOROVOD_WIRE_COMPRESSION_MIN_BYTES"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(parallel_work(rank, seed, tmpdir))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+class _Watch:
+    """K5's lse cotangents and the seconds of gloo staging, seen by wrappers
+    around ``flash_bwd_dq_cuda``, the mesh's ``_send_recv`` (the ring's K/V
+    exchanges: ``exchange_s``) and the device plane's ``plain_allreduce``
+    (the gradients' and the loss's allreduces on the executor's thread:
+    ``allreduce_s``); the counting stays the kernel wrapper's.
+    ``sync_wait_s`` is the caller's wait in the optimizer's synchronize
+    after backward, the part of ``allreduce_s`` that backward did not
+    hide."""
+
+    def __init__(self, fa, pcol, dp):
+        self.fa, self.pcol, self.dp = fa, pcol, dp
+        self.dq, self.send_recv = fa.flash_bwd_dq_cuda, pcol._send_recv
+        self.allreduce = dp.plain_allreduce
+        self.reset()
+
+    def timed(self, fn, key):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                setattr(self, key, getattr(self, key)
+                        + time.perf_counter() - t0)
+        return call
+
+    def __enter__(self):
+        def dq(q, k, v, dout, out, lse, dlse, *args):
+            self.dlse.append(None if dlse is None
+                             else dlse.abs().max().item())
+            return self.dq(q, k, v, dout, out, lse, dlse, *args)
+
+        self.fa.flash_bwd_dq_cuda = dq
+        self.pcol._send_recv = self.timed(self.send_recv, "exchange_s")
+        self.dp.plain_allreduce = self.timed(self.allreduce, "allreduce_s")
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_bwd_dq_cuda = self.dq
+        self.pcol._send_recv = self.send_recv
+        self.dp.plain_allreduce = self.allreduce
+
+    def reset(self):
+        self.dlse = []
+        self.exchange_s = self.allreduce_s = self.sync_wait_s = 0.0
+
+
+def sp_trainer_steps(hvd, fa, qz, watch, trainer, steps, want, merged,
+                     what):
+    """``steps`` steps of a sequence-parallel trainer's closure, each with
+    its flash launches held to ``want`` a kernel (K1-K3 to none), K5 fed
+    the merge's lse cotangent at every launch, and the parameters' digest.
+    A rank that merges ``merged`` > 1 chunks a row must feed K5 a non-zero
+    one; with one chunk (rank 0 of a causal ring: its other hop is in the
+    future) out does not depend on lse and the cotangent is exactly 0."""
+    model, opt = trainer["model"], trainer["optimizer"]
+    opt.synchronize = watch.timed(opt.synchronize, "sync_wait_s")
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    qz.reset_launch_counts()
+    out = []
+    for i in range(steps):
+        before = kernel_launches(fa, qz)
+        watch.reset()
+        t0 = time.perf_counter()
+        loss = hvd.allreduce(trainer["step"]().detach(),
+                             name=f"{what}.loss").item()
+        ms = (time.perf_counter() - t0) * 1e3
+        rose = {n: c - before[n] for n, c in kernel_launches(fa, qz).items()}
+        expected = {n: want if n in fa.LAUNCHES else 0 for n in rose}
+        if rose != expected:
+            raise AssertionError(f"{what} step {i}: launches {rose}, "
+                                 f"expected {expected}")
+        if len(watch.dlse) != want or None in watch.dlse or \
+                (merged > 1) != (max(watch.dlse) > 0):
+            raise AssertionError(f"{what} step {i}: K5's lse cotangents "
+                                 f"{watch.dlse} ({merged} chunks merged)")
+        out.append({"loss": loss, "step_ms": ms,
+                    "ring_exchange_s": watch.exchange_s,
+                    "allreduce_s": watch.allreduce_s,
+                    "sync_wait_s": watch.sync_wait_s,
+                    "max_abs_dlse": max(watch.dlse), "launches": rose,
+                    "params_digest": digest(torch.cat(
+                        [p.detach().reshape(-1).float()
+                         for p in model.parameters()]))})
+        if i == 0:
+            first = {n: p.grad.detach().float().cpu().clone()
+                     for n, p in model.named_parameters()
+                     if n in PAR_LEAVES}
+    return out, first
+
+
+def parallel_layers(hvd, par, fa, qz, seed, rank) -> dict:
+    """(c): Ulysses, tp_mlp, vocab_parallel_embedding, gpipe and switch_moe
+    on card tensors at axis size 2, each output and one gradient against
+    its dense one-process version; none may launch K1-K6."""
+    import torch.nn.functional as F
+
+    dev = hvd.device()
+    gen = torch.Generator().manual_seed(seed + 7)
+
+    def randn(*shape, scale=1.0, grad=False):
+        t = (torch.randn(*shape, generator=gen) * scale).to(dev)
+        return t.requires_grad_(grad)
+
+    def gelu(x):
+        return F.gelu(x, approximate="tanh")
+
+    def grad_of(loss, x):
+        return torch.autograd.grad(loss, x)[0]
+
+    half = slice(rank * 1024, (rank + 1) * 1024)
+    errs = {}
+    before = kernel_launches(fa, qz)
+    t0 = time.perf_counter()
+    with par.build_mesh({"sp": 2}):       # Ulysses: [2, 2048, 16, 64]
+        q, k, v = (randn(2, 2048, 16, 64) for _ in range(3))
+        c = randn(2, 2048, 16, 64)
+        ql = q[:, half].clone().requires_grad_()
+        out = par.ulysses_attention(ql, k[:, half], v[:, half], "sp",
+                                    causal=True)
+        dq = grad_of((out * c[:, half]).sum(), ql)
+        qd = q.clone().requires_grad_()
+        logits = torch.einsum("bqhd,bkhd->bhqk", qd, k) * 64 ** -0.5
+        mask = torch.ones(2048, 2048, dtype=torch.bool, device=dev).tril()
+        probs = torch.softmax(logits.masked_fill(~mask, torch.finfo(
+            torch.float32).min), dim=-1)
+        dense = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        errs["ulysses"] = (rel_err(out, dense[:, half]),
+                           rel_err(dq, grad_of((dense * c).sum(), qd)[:, half]))
+        del logits, probs, dense
+    with par.build_mesh({"tp": 2}):       # GPT-2 small's MLP, 1024 tokens
+        x = randn(1024, 768, grad=True)
+        w_in, w_out = randn(768, 3072, scale=0.02), randn(3072, 768,
+                                                           scale=0.02)
+        b_in, b_out = randn(3072, scale=0.02), randn(768, scale=0.02)
+        c = randn(1024, 768)
+        y = par.tp_mlp(x, par.shard_kernel(w_in, "tp", 1),
+                       par.shard_kernel(w_out, "tp", 0),
+                       par.shard_kernel(b_in, "tp", 0), b_out, "tp")
+        dx = grad_of((y * c).sum(), x)
+        dense = gelu(x @ w_in + b_in) @ w_out + b_out
+        errs["tp_mlp"] = (rel_err(y, dense),
+                          rel_err(dx, grad_of((dense * c).sum(), x)))
+        table = randn(50304, 768, grad=True)   # GPT-2 small's token table
+        ids = torch.randint(0, 50304, (8, 1024), generator=gen).to(dev)
+        c = randn(8, 1024, 768)
+        e = par.vocab_parallel_embedding(ids, par.shard_kernel(table, "tp",
+                                                               0), "tp")
+        rows = slice(rank * 25152, (rank + 1) * 25152)
+        dt = grad_of((e * c).sum(), table)[rows]
+        dense = table[ids]
+        errs["vocab_parallel_embedding"] = (
+            rel_err(e, dense),
+            rel_err(dt, grad_of((dense * c).sum(), table)[rows]))
+    with par.build_mesh({"pp": 2}):       # two stages of gelu(a @ W)
+        ws = randn(2, 768, 768, scale=0.03)
+        x = randn(4, 256, 768, grad=True)
+        c = randn(4, 256, 768)
+        out = par.last_stage_value(par.gpipe(
+            lambda w, a: gelu(a @ w), par.pipeline_stage_params(ws, "pp"), x,
+            "pp"), "pp")
+        dx = grad_of((out * c).sum(), x)
+        dense = gelu(gelu(x @ ws[0]) @ ws[1])
+        errs["gpipe"] = (rel_err(out, dense),
+                         rel_err(dx, grad_of((dense * c).sum(), x)))
+    with par.build_mesh({"ep": 2}):       # 2 experts, no token dropped
+        x_all = randn(2048, 768, grad=True)
+        router = randn(768, 2, scale=0.05)
+        w_in, w_out = randn(2, 768, 3072, scale=0.02), randn(
+            2, 3072, 768, scale=0.02)
+        c = randn(2048, 768)
+        out = par.switch_moe(
+            x_all[half], router, par.moe_ffn(
+                par.pipeline_stage_params(w_in, "ep"),
+                par.pipeline_stage_params(w_out, "ep")), "ep",
+            capacity_factor=2.0)
+        dx = grad_of((out * c[half]).sum(), x_all)[half]
+        # Routed block by block, as each rank routed its own tokens.
+        gates = torch.cat([torch.softmax(x_all[b] @ router, dim=-1)
+                           for b in (slice(0, 1024), slice(1024, 2048))])
+        gate, expert = gates.max(dim=-1)
+        dense = torch.stack([gelu(x_all @ w_in[i]) @ w_out[i]
+                             for i in range(2)])
+        dense = dense[expert, torch.arange(2048, device=dev)] * gate[:, None]
+        errs["switch_moe"] = (
+            rel_err(out, dense[half]),
+            rel_err(dx, grad_of((dense * c).sum(), x_all)[half]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rose = {n: c - before[n] for n, c in kernel_launches(fa, qz).items()}
+    if any(rose.values()):
+        raise AssertionError(f"the parallel layers launched {rose}")
+    for name, (e_out, e_grad) in errs.items():
+        if not (e_out <= LAYER_TOL and e_grad <= LAYER_TOL):
+            raise AssertionError(f"{name}: output {e_out}, gradient {e_grad} "
+                                 f"from the dense version (limit "
+                                 f"{LAYER_TOL})")
+    return {"rel_err": {n: {"out": a, "grad": b}
+                        for n, (a, b) in errs.items()},
+            "tol": LAYER_TOL, "launches": rose, "seconds": seconds}
+
+
+def parallel_work(rank, seed, tmpdir):
+    import dataclasses
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import models, parallel as par
+    from horovod_tpu_torch.examples import bert_pretraining, gpt_long_context
+    from horovod_tpu_torch.ops import device_plane as dp
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantize as qz
+    from horovod_tpu_torch.parallel import collectives as pcol
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hvd.init(device="cuda:0")  # both ranks on the one card
+    rep = {"rank": rank, "backend": hvd.backend(), "device": str(hvd.device())}
+    try:
+        with _Watch(fa, pcol, dp) as watch:
+            t = gpt_long_context.setup(
+                ["--seq-len", str(PAR_SEQ), "--sp", "2", "--batch-per-dp",
+                 str(PAR_BATCH), "--sp-flash", "--seed", str(seed)],
+                base=models.GPT_SMALL)
+            if (t["sp"], t["config"].sp_axis_name) != (2, "sp") or \
+                    tuple(t["local_ids"].shape) != (PAR_BATCH, PAR_SEQ // 2):
+                raise AssertionError("the GPT trainer did not shard the "
+                                     "sequence over sp = 2")
+            layers = t["config"].num_layers
+            want = ring_launches(rank, 2, layers, causal=True)
+            steps, first = sp_trainer_steps(hvd, fa, qz, watch, t, PAR_STEPS,
+                                            want, rank + 1, "gpt_sp")
+            check_losses("gpt sp", [s["loss"] for s in steps])
+            rep["gpt"] = {"steps": steps, "launches_per_step": want}
+            if rank == 0:
+                torch.save(first, os.path.join(tmpdir, "grads.pt"))
+            del t
+            torch.cuda.empty_cache()
+
+            base = dataclasses.replace(models.BERT_LARGE,
+                                       num_layers=BERT_SP_LAYERS)
+            t = bert_pretraining.setup(
+                ["--large", "--seq-parallel", "--sp-flash", "--batch-per-chip",
+                 str(BERT_SP_BATCH), "--seq-len", str(BERT_SP_SEQ), "--seed",
+                 str(seed)], base)
+            want = ring_launches(rank, 2, BERT_SP_LAYERS, causal=False)
+            steps, _ = sp_trainer_steps(hvd, fa, qz, watch, t, BERT_SP_STEPS,
+                                        want, 2, "bert_sp")
+            check_losses("bert sp", [s["loss"] for s in steps],
+                         falling=False)
+            rep["bert"] = {"steps": steps, "launches_per_step": want}
+            del t
+            torch.cuda.empty_cache()
+        rep["layers"] = parallel_layers(hvd, par, fa, qz, seed, rank)
+    finally:
+        hvd.shutdown()
+    return rep
+
+
+def parallel_replay(seed, grads, loss) -> dict:
+    """The GPT trainer's first step in one process: the whole 2048-token
+    sequences, dense attention, the mean of the two shards' losses."""
+    import dataclasses
+
+    from horovod_tpu_torch.examples import gpt_long_context
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+
+    cfg = dataclasses.replace(GPT_SMALL, max_seq_len=PAR_SEQ,
+                              use_flash=False)
+    torch.manual_seed(seed)
+    model = GPT(cfg).cuda()
+    ids = gpt_long_context.global_batch(seed, PAR_BATCH, PAR_SEQ,
+                                        cfg.vocab_size).cuda()
+    replay = split_loss(lm_loss, model(ids), ids, 2)
+    replay.backward()
+    errs = {n: rel_err(grads[n].cuda(), p.grad)
+            for n, p in model.named_parameters() if n in PAR_LEAVES}
+    out = {"grad_rel_err": errs, "grad_tol": PAR_GRAD_TOL,
+           "loss": replay.item(), "loss_abs_err": abs(replay.item() - loss),
+           "loss_tol": PAR_LOSS_TOL}
+    del model
+    torch.cuda.empty_cache()
+    if not all(e <= PAR_GRAD_TOL for e in errs.values()):
+        raise AssertionError(f"sp GPT gradients from the replay: {errs}")
+    if not out["loss_abs_err"] <= PAR_LOSS_TOL:
+        raise AssertionError(f"sp GPT loss {loss} against the replay's "
+                             f"{replay.item()}")
+    return out
+
+
+def parallel_phase(seed, gpu_operations) -> dict:
+    """Both ranks on cuda:0 (``parallel_rank``), then the replay of the
+    GPT trainer's first gradients in this process."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        reports, codes = spawn_pair(parallel_rank,
+                                    (seed, gpu_operations, tmpdir), 900)
+        for rep in reports.values():
+            if "error" in rep:
+                raise AssertionError(f"parallel rank {rep['rank']} failed:\n"
+                                     f"{rep['error']}")
+        if codes != [0, 0]:
+            raise AssertionError(f"parallel exit codes {codes}")
+        grads = torch.load(os.path.join(tmpdir, "grads.pt"))
+    r0, r1 = reports[0], reports[1]
+    for what in ("gpt", "bert"):
+        for i, (a, b) in enumerate(zip(r0[what]["steps"],
+                                       r1[what]["steps"])):
+            if a["params_digest"] != b["params_digest"]:
+                raise AssertionError(f"{what} sp step {i}: parameters differ "
+                                     "across ranks")
+            if a["loss"] != b["loss"]:
+                raise AssertionError(f"{what} sp step {i}: averaged losses "
+                                     f"{a['loss']} and {b['loss']}")
+    replay = parallel_replay(seed, grads, r0["gpt"]["steps"][0]["loss"])
+    return {"ranks": [r0, r1], "replay": replay}
+
+
 def timed_phase(fn, *args):
     """``fn(*args)`` and its seconds."""
     t0 = time.perf_counter()
@@ -2748,6 +3158,24 @@ def main() -> int:
                               "through the host: step times are not a "
                               "speed result",
                       "card": card, "seconds": secs, **cnn2}), flush=True)
+    torch.cuda.empty_cache()
+    par, secs = timed_phase(parallel_phase, args.seed, gpu_operations)
+    for rep in par["ranks"]:
+        print(json.dumps({"phase": "parallel", "part": "ranks",
+                          "gpt": {"model": "GPT_SMALL", "sp": 2,
+                                  "batch": PAR_BATCH, "seq": PAR_SEQ},
+                          "bert": {"model": "BERT_LARGE", "sp": 2,
+                                   "layers": BERT_SP_LAYERS,
+                                   "batch": BERT_SP_BATCH,
+                                   "seq": BERT_SP_SEQ},
+                          "gpu_operations": gpu_operations,
+                          "note": "two ranks share one card over gloo "
+                                  "staged through the host: times are not "
+                                  "a speed result",
+                          "card": card, "seconds": secs, **rep}),
+              flush=True)
+    print(json.dumps({"phase": "parallel", "part": "replay",
+                      "card": card, **par["replay"]}), flush=True)
     ef = rank0["ef_trainer"]
     trainer = spine0["trainer"]["launches"]
     codec_launches = {"quant_int8": trainer["quant_int8"],
@@ -2780,7 +3208,13 @@ def main() -> int:
             "launches_spine_world2": trainer[name],
             "launches_spine_extras_world1":
                 observed["on"][-1]["launches"][name],
-            "launches_world2_ef_trainer": ef["launches"][name]})
+            "launches_world2_ef_trainer": ef["launches"][name],
+            "launches_parallel_gpt_sp_per_step": [
+                r["gpt"]["steps"][0]["launches"][name]
+                for r in par["ranks"]],
+            "launches_parallel_bert_sp_per_step": [
+                r["bert"]["steps"][0]["launches"][name]
+                for r in par["ranks"]]})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
         ms, plain, (bound_ms, bound_by), lib = codec_timing[name]
         summary.append({
@@ -2799,7 +3233,9 @@ def main() -> int:
             "launches_world2_collectives":
                 rank0["collectives"]["launches"][name],
             "launches_spine_extras_a2a_rs":
-                extras0["collectives"]["launches"][name]})
+                extras0["collectives"]["launches"][name],
+            "launches_parallel": [r["layers"]["launches"][name]
+                                  for r in par["ranks"]]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

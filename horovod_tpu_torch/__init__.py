@@ -11,7 +11,9 @@ card (the device plane) or over the core's TCP ring for host buffers;
 ``device_compression=`` on the quantized ring with error feedback, or
 shards the optimizer's state (``shard_optimizer_states=True``, ZeRO-1);
 ``hvd.SyncBatchNorm`` normalizes over the global batch, and
-``horovod_tpu_torch.models`` holds the model zoo.  ``hvd.metrics()``,
+``horovod_tpu_torch.models`` holds the model zoo and
+``horovod_tpu_torch.parallel`` the sequence (ring, Ulysses), tensor,
+pipeline and expert parallel layers over named mesh axes.  ``hvd.metrics()``,
 ``hvd.flight_record()``, ``hvd.step_trace()``, ``hvd.start_timeline()`` and
 ``hvd.start_device_trace()`` show what the core and the card did.  The
 package imports torch and never jax or the JAX package ``horovod_tpu``,
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import models, ops  # noqa: F401
+from . import models, ops, parallel  # noqa: F401
 from .ops import quantize  # noqa: F401
 from .basics import (backend, ccl_built, cross_rank,  # noqa: F401
                      cross_size, cuda_built, ddl_built, device,

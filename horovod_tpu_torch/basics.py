@@ -5,7 +5,8 @@ and ``horovod_tpu/basics.py``.  ``init()`` forms a ``torch.distributed``
 process group over the ranks -- NCCL when the rank's device is a CUDA card,
 gloo when the caller asked for the CPU, or gloo on the card with
 ``HOROVOD_GPU_OPERATIONS=GLOO`` (NCCL refuses two ranks of one group on one
-card) -- and then starts the negotiation core and its executor
+card) -- with the 1-D global mesh over the world (``parallel.mesh``), and
+then starts the negotiation core and its executor
 (``context.HorovodContext``) beside it.  Both are formed at world size 1
 too, so one card runs the same negotiated path that n cards run.
 """
@@ -106,11 +107,13 @@ def init(device: Union[str, torch.device, None] = None,
             init_method=f"tcp://{cfg.rendezvous_addr}:{cfg.rendezvous_port}",
             rank=cfg.rank, world_size=cfg.size, timeout=timeout)
     from .context import HorovodContext
+    from .parallel import mesh
 
     try:
         caller_group = dist.new_group(list(range(cfg.size)))
         _runtime = _Runtime(cfg=cfg, device=dev, backend=backend,
                             caller_group=caller_group)
+        mesh.build_global_mesh()
         HorovodContext.start(cfg, dev, backend,
                              core_port=_core_port(cfg, dev, backend))
         for ps in process_sets or ():
@@ -119,6 +122,7 @@ def init(device: Union[str, torch.device, None] = None,
             add_process_set(ps)
     except BaseException:
         _runtime = None
+        mesh.reset()
         HorovodContext.shutdown()
         dist.destroy_process_group()
         raise
@@ -149,8 +153,10 @@ def shutdown() -> None:
     if _runtime is None:
         return
     from .context import HorovodContext
+    from .parallel import mesh
 
     HorovodContext.shutdown()
+    mesh.reset()
     if dist.is_initialized():
         dist.destroy_process_group()
     _runtime = None

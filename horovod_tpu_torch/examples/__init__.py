@@ -4,7 +4,11 @@
 - ``cnn_benchmark``: ResNet-50/101, Inception V3, VGG-16 or ResNetTiny on
   synthetic images, images/s per card (``examples/jax_cnn_benchmark.py``);
 - ``bert_pretraining``: BERT MLM pretraining with fp16 gradient
-  compression, sequences/s per card (``examples/jax_bert_pretraining.py``);
+  compression, sequences/s per card, optionally sequence-parallel
+  (``examples/jax_bert_pretraining.py``);
+- ``gpt_long_context``: GPT trained sequence-parallel over a
+  ``("dp", "sp")`` mesh with ring attention, tokens/s
+  (``examples/jax_gpt_long_context.py``);
 - ``mnist_mlp``: the MLP on synthetic MNIST-shaped data
   (``examples/jax_mnist_mlp.py``).
 

@@ -15,9 +15,12 @@ written out (no autocast):
 - the MLM head's LayerNorm and logits in fp32.
 
 Module names follow the flax tree (``encoder.layer_<i>.attention.qkv``,
-...) so ``models.convert`` maps one onto the other.  The reference's
-sequence-parallel fields (``sp_axis_name``, ``sp_use_flash``: ring
-attention) wait for the parallel layers and are not part of this config.
+...) so ``models.convert`` maps one onto the other.  With
+``sp_axis_name`` set, the sequence is sharded over that mesh axis: position
+ids are global and attention is non-causal ring attention
+(``parallel.ring_attention``; the flash kernels on each hop under
+``sp_use_flash``), which ignores ``attention_mask`` as the reference's
+does (it passes none to its ring).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import axis_index
+from ..parallel.ring_attention import ring_attention
 from ._layers import LN_EPS, layer_norm, linear, make_dense, make_embed
 
 
@@ -43,6 +48,8 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    sp_axis_name: Optional[str] = None  # sequence-parallel mesh axis
+    sp_use_flash: bool = False          # flash kernels per ring hop
 
 
 BERT_BASE = BertConfig(hidden_size=768, num_layers=12, num_heads=12,
@@ -71,6 +78,11 @@ class SelfAttention(nn.Module):
         qkv = linear(x, self.qkv, cfg.dtype).view(
             b, s, 3, cfg.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cfg.sp_axis_name is not None:
+            ctx = ring_attention(q, k, v, cfg.sp_axis_name, causal=False,
+                                 use_flash=cfg.sp_use_flash)
+            return linear(ctx.reshape(b, s, cfg.hidden_size), self.out,
+                          cfg.dtype)
         # fp32 logits and softmax whatever the activation dtype.
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * \
             self.head_dim ** -0.5
@@ -119,9 +131,14 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 deterministic: bool = True):
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
         s = input_ids.shape[-1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        # Under sequence parallelism this rank holds global positions
+        # [index * s, (index + 1) * s).
+        offset = 0 if cfg.sp_axis_name is None else \
+            axis_index(cfg.sp_axis_name) * s
+        pos = torch.arange(offset, offset + s, device=input_ids.device)[None]
         # Gather, then cast: the same values as flax's cast-then-gather.
         x = self.word_embeddings(input_ids).to(dt) + \
             self.position_embeddings(pos).to(dt)

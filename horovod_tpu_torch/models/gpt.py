@@ -12,7 +12,14 @@ of the flax model it mirrors, with every cast written out (no autocast):
 - ``ln_f`` and ``lm_head`` run in fp32, so the logits are fp32.
 
 Attention is causal with ``scale = head_dim ** -0.5``, through the flash
-kernels (``config.use_flash``) or dense attention.  Parameter names follow
+kernels (``config.use_flash``) or dense attention, or, with
+``config.sp_axis_name`` set, through ring attention over that mesh axis
+(``parallel.ring_attention``; each hop's chunk by the flash kernels under
+``config.sp_use_flash``), the sequence sharded over the axis and the
+positions global.  ``config.remat`` checkpoints each block
+(``torch.utils.checkpoint``), so its activations are recomputed in
+backward, ring hops included.  The reference's ``dropout_rate`` (0 by
+default) is not ported.  Parameter names follow
 the flax tree (``h.<i>.attn.qkv`` for ``h_<i>/attn/qkv``, ...), so
 ``models.convert.gpt_params_from_jax`` maps one onto the other.
 """
@@ -20,12 +27,16 @@ the flax tree (``h.<i>.attn.qkv`` for ``h_<i>/attn/qkv``, ...), so
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import dense_attention, flash_attention
+from ..parallel.collectives import axis_index
+from ..parallel.ring_attention import ring_attention
 from ._layers import LN_EPS
 from ._layers import layer_norm as _layer_norm
 from ._layers import linear as _linear
@@ -40,6 +51,9 @@ class GPTConfig:
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16
     use_flash: bool = True           # the hand-written kernels on a card
+    sp_axis_name: Optional[str] = None   # sequence-parallel mesh axis
+    sp_use_flash: bool = False           # flash kernels per ring hop
+    remat: bool = False                  # checkpoint each block
 
 
 GPT_SMALL = GPTConfig()
@@ -62,8 +76,12 @@ class CausalSelfAttention(nn.Module):
         qkv = _linear(x, self.qkv, cfg.dtype).view(
             b, s, 3, cfg.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        attend = flash_attention if cfg.use_flash else dense_attention
-        ctx = attend(q, k, v, causal=True)
+        if cfg.sp_axis_name is not None:
+            ctx = ring_attention(q, k, v, cfg.sp_axis_name, causal=True,
+                                 use_flash=cfg.sp_use_flash)
+        else:
+            attend = flash_attention if cfg.use_flash else dense_attention
+            ctx = attend(q, k, v, causal=True)
         return _linear(ctx.reshape(b, s, cfg.hidden_size), self.out,
                        cfg.dtype)
 
@@ -99,18 +117,30 @@ class GPT(nn.Module):
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
     def forward(self, input_ids):
-        dt = self.cfg.dtype
+        cfg = self.cfg
+        dt = cfg.dtype
         s = input_ids.shape[-1]
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        # Under sequence parallelism this rank holds global positions
+        # [index * s, (index + 1) * s).
+        offset = 0 if cfg.sp_axis_name is None else \
+            axis_index(cfg.sp_axis_name) * s
+        pos = torch.arange(offset, offset + s, device=input_ids.device)[None]
         # Gather, then cast: the same values as flax's cast-then-gather.
         x = (self.wte(input_ids).to(dt) + self.wpe(pos).to(dt))
         for block in self.h:
-            x = block(x)
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
         x = self.ln_f(x.float())
         return self.lm_head(x)
 
 
 def lm_loss(logits, input_ids):
-    """Next-token cross entropy (shifted), mean over positions."""
+    """Next-token cross entropy (shifted), mean over positions.  On a
+    sequence shard the shift stays inside the shard, so the one token at
+    each boundary between shards is not predicted (as the reference's
+    ``examples/jax_gpt_long_context.py`` says)."""
     return F.cross_entropy(logits[:, :-1].flatten(0, 1).float(),
                            input_ids[:, 1:].flatten())

@@ -43,9 +43,10 @@ from . import quantize as qz
 class GroupRing:
     """A rank's place in a process group and its ring exchange: send a list
     of tensors to one position of the group and receive tensors of the same
-    shapes from another, all in one ``batch_isend_irecv``.  ``rank`` and
-    ``size`` are the position in and the size of the group; ``wire`` is the
-    device the group's backend takes tensors on."""
+    shapes from another, all in one ``batch_isend_irecv`` (either side may
+    be None: a one-sided transfer).  ``rank`` and ``size`` are the position
+    in and the size of the group; ``wire`` is the device the group's
+    backend takes tensors on."""
 
     def __init__(self, group, ranks: Sequence[int], me: int,
                  wire: torch.device):
@@ -55,16 +56,23 @@ class GroupRing:
         self.size = len(self.ranks)
         self.wire = wire
 
-    def exchange(self, tensors: Sequence[torch.Tensor], dst: int,
-                 src: int) -> List[torch.Tensor]:
-        sends = [t.to(self.wire).contiguous() for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = ([dist.P2POp(dist.isend, t, self.ranks[dst], self.group)
-                for t in sends]
-               + [dist.P2POp(dist.irecv, t, self.ranks[src], self.group)
-                  for t in recvs])
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    def exchange(self, tensors: Sequence[torch.Tensor], dst: Optional[int],
+                 src: Optional[int]) -> List[Optional[torch.Tensor]]:
+        """The tensors received from ``src``, each on its sent tensor's
+        device (None each when ``src`` is None)."""
+        ops = [] if dst is None else [
+            dist.P2POp(dist.isend, t.to(self.wire).contiguous(),
+                       self.ranks[dst], self.group) for t in tensors]
+        recvs = [] if src is None else [
+            torch.empty(t.shape, dtype=t.dtype, device=self.wire)
+            for t in tensors]
+        ops += [dist.P2POp(dist.irecv, r, self.ranks[src], self.group)
+                for r in recvs]
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if src is None:
+            return [None] * len(tensors)
         return [r.to(t.device) for r, t in zip(recvs, tensors)]
 
 

@@ -1,7 +1,10 @@
 """What ``chip_smoke.py`` computes without a card: the device time of one
-call from a profiler trace of many calls, which may have lost events."""
+call from a profiler trace of many calls, which may have lost events, the
+step breakdown's categories, and the parallel phase's expected launches
+and replay loss."""
 
 import pytest
+import torch
 
 import chip_smoke
 
@@ -141,3 +144,101 @@ def test_extras_bytes_count_one_chunk_a_peer():
                                                qz.encoded_nbytes(c, "int4"))
     # 25.2 MB a rank: the MoE dispatch of one 8 x 1024 batch at width 768.
     assert 2 * c * 4 == 25_165_824
+
+
+class _LoopbackRing:
+    """A ring exchange that hands each rank its own tensors back: the hop
+    pattern of one rank of a ring, without peers."""
+
+    wire = torch.device("cpu")
+
+    def exchange(self, tensors, dst, src):
+        return [t.clone() for t in tensors]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_launches_counts_the_hops_a_rank_computes(monkeypatch, world,
+                                                       causal):
+    """``ring_launches`` (one layer) is the number of flash chunks
+    ``ring_attention`` computes on each rank: the diagonal and the past
+    chunks when causal, every chunk otherwise; each chunk's backward runs
+    K5 and K6 once."""
+    import importlib
+
+    from horovod_tpu_torch.parallel import mesh
+
+    # The package exports the function under the module's name.
+    ra = importlib.import_module("horovod_tpu_torch.parallel.ring_attention")
+
+    for rank in range(world):
+        chunks = []
+
+        def counting(*args, **kwargs):
+            chunks.append(kwargs["causal"])
+            return real(*args, **kwargs)
+
+        real = ra.flash_attention_with_lse
+        monkeypatch.setattr(ra, "flash_attention_with_lse", counting)
+        axis = mesh.Axis.__new__(mesh.Axis)
+        axis.name, axis.ranks, axis.size, axis.index = \
+            "sp", list(range(world)), world, rank
+        axis.ring = _LoopbackRing()
+        q, k, v = (torch.randn(1, 4, 2, 8, requires_grad=True)
+                   for _ in range(3))
+        ra.ring_attention(q, k, v, axis, causal=causal, use_flash=True,
+                          block_size=2).sum().backward()
+        monkeypatch.undo()
+        assert len(chunks) == chip_smoke.ring_launches(rank, world, 1,
+                                                       causal)
+        assert chunks.count(True) == (1 if causal else 0)  # the diagonal
+
+
+def test_split_loss_skips_each_shard_boundary_token():
+    """The replay's loss: each shard's own next-token loss, averaged over
+    the shards, which leaves out the token at every shard boundary."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import lm_loss
+
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 8, 11, generator=gen)
+    ids = torch.randint(0, 11, (2, 8), generator=gen)
+    per_shard = [F.cross_entropy(logits[:, i:i + 3].reshape(-1, 11),
+                                 ids[:, i + 1:i + 4].reshape(-1))
+                 for i in (0, 4)]
+    got = chip_smoke.split_loss(lm_loss, logits, ids, 2)
+    torch.testing.assert_close(got, (per_shard[0] + per_shard[1]) / 2)
+    assert not torch.isclose(got, lm_loss(logits, ids))
+    torch.testing.assert_close(chip_smoke.split_loss(lm_loss, logits, ids, 1),
+                               lm_loss(logits, ids))
+
+
+def test_watch_times_each_staging_and_restores_the_functions():
+    """The parallel phase's ``_Watch`` adds each wrapped call's seconds to
+    its own total, records K5's lse cotangents, and puts the wrapped
+    functions back on exit."""
+    import types
+
+    def dq(q, k, v, dout, out, lse, dlse, *rest):
+        return "dq"
+
+    fa = types.SimpleNamespace(flash_bwd_dq_cuda=dq)
+    pcol = types.SimpleNamespace(_send_recv=lambda *a: "sent")
+    dp = types.SimpleNamespace(plain_allreduce=lambda *a: "reduced")
+    originals = (fa.flash_bwd_dq_cuda, pcol._send_recv, dp.plain_allreduce)
+    with chip_smoke._Watch(fa, pcol, dp) as watch:
+        assert pcol._send_recv(1, 2) == "sent"
+        assert dp.plain_allreduce(1) == "reduced"
+        assert fa.flash_bwd_dq_cuda(*[None] * 6, torch.tensor([-2.0, 1.0]),
+                                    None) == "dq"
+        sync = watch.timed(lambda: "synced", "sync_wait_s")
+        assert sync() == "synced"
+        assert watch.dlse == [2.0]
+        assert min(watch.exchange_s, watch.allreduce_s,
+                   watch.sync_wait_s) > 0
+        watch.reset()
+        assert (watch.dlse, watch.exchange_s, watch.allreduce_s,
+                watch.sync_wait_s) == ([], 0.0, 0.0, 0.0)
+    assert (fa.flash_bwd_dq_cuda, pcol._send_recv,
+            dp.plain_allreduce) == originals

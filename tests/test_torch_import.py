@@ -1,7 +1,7 @@
-"""The port stands alone: ``horovod_tpu_torch`` and ``chip_smoke.py`` import
-neither jax nor the JAX package ``horovod_tpu``, ``hvd.init()`` starts the
-port's own native core, and it runs on the card unless the caller asks for
-the CPU."""
+"""The port stands alone: ``horovod_tpu_torch`` (``parallel`` included) and
+``chip_smoke.py`` import neither jax nor the JAX package ``horovod_tpu``,
+``hvd.init()`` starts the port's own native core and builds the global mesh,
+and it runs on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -42,6 +42,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     core = HorovodContext.instance().core
     import torch
     total = hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist()
+    assert hvd.parallel.global_mesh().axis("hvd").size == 1
     print(core.name, core._lib._name, total)
     hvd.shutdown()
     leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -72,7 +73,11 @@ def test_imports_with_jax_and_reference_blocked():
                    "models.resnet", "models.vgg", "models.inception",
                    "models.bert", "models.mlp", "models.convert",
                    "examples.cnn_benchmark",
-                   "examples.bert_pretraining", "examples.mnist_mlp"):
+                   "examples.bert_pretraining", "examples.mnist_mlp",
+                   "examples.gpt_long_context", "parallel",
+                   "parallel.mesh", "parallel.collectives",
+                   "parallel.ring_attention", "parallel.tensor_parallel",
+                   "parallel.pipeline", "parallel.moe"):
         assert f"'horovod_tpu_torch.{module}'" in names
 
 
