@@ -161,7 +161,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``GPT(GPT_SMALL)`` at full width from the seed, 4 x 1024 tokens a rank a
    step from a seeded token set through ``ElasticSampler``,
    ``DistributedOptimizer(AdamW(3e-4))`` in a ``TorchState`` under
-   ``@hvd.elastic.run``, ``state.commit()`` after each of 4 steps (each
+   ``@hvd.elastic.run``, ``state.commit()`` after each of 3 steps (each
    commit replicates the 1.96 GB state to the ring successor, as the
    defaults say).  Rank 1 SIGKILLs itself after the forward of step 2;
    the driver must form exactly two generations of size 2, the survivor
@@ -226,6 +226,31 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    plain steps of the same model through ``runner._exec_fn``, equal
    digests and losses, K4-K6 2 a step a rank.  World-2 parts run two ranks
    on ``cuda:0`` over gloo; their times are not a speed result.
+
+16. The compiler data plane (``compiled_plane``).  (a) World 1 over NCCL:
+   ``DistributedOptimizer(plane="gspmd")`` counts ``demote_world1`` and
+   trains ``GPT(GPT_SMALL)`` 2 steps bitwise as ``plane="eager"`` does.
+   (b) Two ranks on ``cuda:0`` over gloo (``plane_rank``): ``GPT(GPT_SMALL)``
+   from the seed, its parameters replicated DTensors (``distribute_module``
+   on ``gspmd_plane.build_gspmd_mesh()``, a ``DeviceMesh`` over the gloo
+   group on ``cuda``), 8 x 1024 tokens a step as ``Shard(0)``,
+   ``DistributedOptimizer(AdamW(3e-4, fused), plane="gspmd")``, and 3
+   steps of ``hlo_inspect.instrument(step)`` over Inductor, ``step``
+   holding the forward, ``lm_loss``, the backward and ``opt.step()``: K4-K6
+   12 a step a rank inside the compiled step (K1-K3 none), one inventory
+   a rank of all-reduces only, its raw bytes the fp32 parameters' and its
+   wire bytes the ring model's at g = 2, ``data_plane_stats()``'s
+   ``gspmd_raw`` / ``gspmd_wire`` equal to it, ``plane_counters() ==
+   {"gspmd": 1}``, every step-trace record tagged plane 1; then the same
+   steps on the eager plane (plain tensors, the hooks, each rank its 4
+   sequences): the first loss within ``PLANE_LOSS_RTOL`` and the
+   parameters within ``PLANE_UPDATE_RTOL`` of the compiled run's, which
+   must be bitwise equal across ranks.  Prints the
+   compile and step seconds, the compile's seconds by stage, peak device
+   memory a rank and the profiled last step's device time by category.
+   The two ranks start before the elastic phase (13) and run beside its
+   jobs: their compile is host work of minutes.  ``chip_plane_faults.py``
+   runs the phase's ranks alone and with planted faults.
 
 Each phase prints its seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1205,37 +1230,55 @@ def nccl_pair_rank(rank, port, queue):
                    "error": str(e).strip().splitlines()[-1]})
 
 
-def spawn_pair(target, args, timeout_s):
-    """Run ``target(rank, port, *args, queue)`` in two spawned processes;
-    returns their reports by rank.  Every process is joined or killed."""
-    import queue as queue_mod
-    import socket
+class RankPair:
+    """``target(rank, port, *args, queue)`` in two spawned processes,
+    started at once; :meth:`collect` waits for their reports."""
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=target, args=(r, port, *args, results))
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    reports = {}
-    try:
-        for _ in procs:
-            rep = results.get(timeout=timeout_s)
-            reports[rep["rank"]] = rep
-    except queue_mod.Empty:
-        raise AssertionError(f"{target.__name__}: a rank sent no report in "
-                             f"{timeout_s} s")
-    finally:
-        for p in procs:
-            p.join(60)
-        for p in procs:
+    def __init__(self, target, args):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.name = target.__name__
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=target,
+                                  args=(r, port, *args, self.results))
+                      for r in range(2)]
+        for p in self.procs:
+            p.start()
+
+    def kill(self):
+        for p in self.procs:
             if p.is_alive():
                 p.kill()
                 p.join(10)
-    return reports, [p.exitcode for p in procs]
+
+    def collect(self, timeout_s):
+        """The ranks' reports by rank and their exit codes; every process
+        is joined or killed."""
+        import queue as queue_mod
+
+        reports = {}
+        try:
+            for _ in self.procs:
+                rep = self.results.get(timeout=timeout_s)
+                reports[rep["rank"]] = rep
+        except queue_mod.Empty:
+            raise AssertionError(f"{self.name}: a rank sent no report in "
+                                 f"{timeout_s} s")
+        finally:
+            for p in self.procs:
+                p.join(60)
+            self.kill()
+        return reports, [p.exitcode for p in self.procs]
+
+
+def spawn_pair(target, args, timeout_s):
+    """Run ``target(rank, port, *args, queue)`` in two spawned processes;
+    returns their reports by rank.  Every process is joined or killed."""
+    return RankPair(target, args).collect(timeout_s)
 
 
 def world2_phase(seed, gpu_operations):
@@ -3057,7 +3100,9 @@ def parallel_phase(seed, gpu_operations) -> dict:
 
 # The elastic phase: GPT-2 small at full width, two ranks on cuda:0 under
 # the port's launcher and elastic driver, rank 1 killed once mid-step.
-ELASTIC_STEPS = 4          # steps of the job, over both generations
+# Steps of the job, over both generations: 3 since the compiled-plane
+# phase took the room of a commit and a step of each run (4 before).
+ELASTIC_STEPS = 3
 ELASTIC_KILL_STEP = 2      # rank 1 dies after this step's forward
 ELASTIC_BATCH = 4          # sequences a rank a step
 ELASTIC_SEQ = 1024         # tokens a sequence
@@ -3119,6 +3164,10 @@ def checkpoint_roundtrip(hvd, model, opt, step, outdir) -> dict:
     ckpt.save(step, live)
     ckpt.wait_until_finished()
     save_s = time.perf_counter() - t0
+    # restore() takes the newest step whose every shard exists, so it waits
+    # until each rank's write has ended: otherwise rank 0 may find this
+    # step incomplete and restore nothing.
+    hvd.barrier()
     path = ckpt._shard_path(step, hvd.rank())
     t0 = time.perf_counter()
     restored = ckpt.restore()
@@ -4736,6 +4785,365 @@ def integrations_phase(hvd, fa, seed, gpu_operations, card="") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The compiler data plane: GPT-2 small on DTensor under torch.compile.
+# ---------------------------------------------------------------------------
+
+PLANE_STEPS = 3
+PLANE_BATCH = 8            # sequences a step, Shard(0): 4 a rank
+PLANE_SEQ = 1024
+PLANE_LR = 3e-4
+PLANE_TIMEOUT_S = 900
+# AdamW is the fused one (``fused=True``, one multi-tensor kernel, on both
+# planes): under torch.compile the compiled step calls it as it is, where
+# the per-parameter foreach arithmetic of 149 parameters is Inductor's to
+# trace and generate, tens of seconds of each rank's compile.
+# The compiled step against the eager replay: ||update difference|| /
+# ||update|| over all parameters.  The gradients differ by bf16 rounding
+# in another fusion order, which flips Adam's sign-like first updates
+# where |g| is that small.  The largest element difference is reported
+# and held to nothing: Adam bounds every element's update by about lr a
+# step on any gradients, so a planted fault stays under that bound too.
+# Read with ``chip_plane_faults.py`` on an NVIDIA H100 80GB HBM3 at 700 W:
+# the sound run 0.0406, rank 1 training on rank 0's shard 0.844, the
+# embeddings stepped on unreduced gradients 0.347.  The limit lies between
+# them, about 3x from each side.  The first step's loss, the same weights
+# and tokens through both forwards, to 1e-2 relative.
+PLANE_UPDATE_READINGS = {"sound": 0.0406, "dup_shard": 0.844,
+                         "unreduced_embeddings": 0.347}
+PLANE_UPDATE_RTOL = 0.12
+PLANE_LOSS_RTOL = 1e-2
+
+
+def plane_tokens(seed) -> torch.Tensor:
+    """Every step's global batch of token ids, ``[steps, 8, 1024]``."""
+    from horovod_tpu_torch.models import GPT_SMALL
+
+    gen = torch.Generator().manual_seed(seed + 12)
+    return torch.randint(0, GPT_SMALL.vocab_size,
+                         (PLANE_STEPS, PLANE_BATCH, PLANE_SEQ),
+                         generator=gen)
+
+
+def plane_rank(rank, port, seed, gpu_operations, cache, queue):
+    """One of two ranks of the compiled-plane phase on ``cuda:0``; both
+    keep Inductor's and Triton's caches in ``cache``."""
+    import traceback
+
+    os.environ.update(
+        TORCHINDUCTOR_CACHE_DIR=os.path.join(cache, "inductor"),
+        TRITON_CACHE_DIR=os.path.join(cache, "triton"),
+        HOROVOD_RANK=str(rank), HOROVOD_SIZE="2", HOROVOD_LOCAL_RANK=str(rank),
+        HOROVOD_LOCAL_SIZE="2", HOROVOD_GLOO_RENDEZVOUS_ADDR="127.0.0.1",
+        HOROVOD_GLOO_RENDEZVOUS_PORT=str(port),
+        HOROVOD_GLOO_TIMEOUT_SECONDS="600", HOROVOD_SHM_DISABLE="1",
+        HOROVOD_GPU_OPERATIONS=gpu_operations)
+    for var in ("HOROVOD_WIRE_COMPRESSION", "HOROVOD_DATA_PLANE",
+                "HOROVOD_HLO_INSPECT"):
+        os.environ.pop(var, None)
+    try:
+        queue.put(plane_work(rank, seed))
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def plane_params(model) -> dict:
+    """Each parameter's values on the host (a replicated DTensor's local
+    copy)."""
+    return {n: getattr(p, "_local_tensor", p).detach().float().cpu()
+            for n, p in model.named_parameters()}
+
+
+def plane_compiled(hvd, fa, qz, seed, rank, tokens) -> tuple:
+    """GPT_SMALL's parameters replicated as DTensors on the plane's mesh,
+    the batch ``Shard(0)``, ``DistributedOptimizer(AdamW, plane="gspmd")``
+    and ``PLANE_STEPS`` steps of ``hlo_inspect.instrument(step)`` over
+    Inductor.  Returns the report and the final parameters."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_module
+
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.ops import gspmd_plane as gp
+    from horovod_tpu_torch.ops import hlo_inspect as hi
+
+    dev = hvd.device()
+    gp.reset_plane_counters()
+    hi.reset()
+    core = HorovodContext.instance().core
+    before_stats = core.data_plane_stats()
+    torch.manual_seed(seed)
+    model = GPT(GPT_SMALL).to(dev)
+    mesh = gp.build_gspmd_mesh()
+    distribute_module(model, mesh)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=PLANE_LR, fused=True),
+        named_parameters=model.named_parameters(), plane="gspmd")
+
+    def step(ids):
+        loss = lm_loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        return loss
+
+    cstep = hi.instrument(step, label="gpt_small_gspmd_step")
+    per = PLANE_BATCH // 2
+    losses, seconds, launches = [], [], []
+    breakdown = None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PLANE_STEPS):
+        ids = DTensor.from_local(
+            tokens[i, rank * per:(rank + 1) * per].to(dev), mesh, [Shard(0)],
+            run_check=False)
+        torch.cuda.synchronize()
+        before = kernel_launches(fa, qz)
+        t0 = time.perf_counter()
+        if i == PLANE_STEPS - 1:
+            box = []
+            breakdown = profile_step(lambda: box.append(cstep(ids)))
+            loss = box[0]
+        else:
+            loss = cstep(ids)
+        value = loss.full_tensor().item()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append({n: c - before[n]
+                         for n, c in kernel_launches(fa, qz).items()})
+        losses.append(value)
+        print(json.dumps({"phase": "compiled_plane", "rank": rank,
+                          "step": i, "seconds": seconds[-1],
+                          "loss": value}), flush=True)
+        # A negotiated collective closes step-trace records, each stamped
+        # with the plane tag the step's optimizer left.
+        hvd.allreduce(torch.tensor([value], device=dev), name=f"plane.{i}")
+    plane_tags = [row[-1] for row in hvd.step_trace().get("steps") or []]
+    peak = torch.cuda.max_memory_allocated()
+    invs = hi.inventories()
+    stats = core.data_plane_stats()
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    report = {
+        "compile_and_first_step_s": seconds[0],
+        "step_s": seconds[1:-1], "profiled_step_s": seconds[-1],
+        "losses": losses, "launches": launches, "plane_tags": plane_tags,
+        "peak_mem_gb": peak / 2 ** 30,
+        "plane_counters": gp.plane_counters(),
+        "inventories": [{k: v for k, v in inv.to_dict().items()
+                         if k != "ops"} for inv in invs],
+        "inventory_ops_sample": [op.to_dict() for op in
+                                 (invs[0].ops[:2] if invs else [])],
+        "gspmd_raw": stats["gspmd_raw"] - before_stats["gspmd_raw"],
+        "gspmd_wire": stats["gspmd_wire"] - before_stats["gspmd_wire"],
+        "param_bytes": param_bytes,
+        "ring_wire_bytes": sum(hi.ring_wire_bytes(op.kind, op.raw_bytes, 2)
+                               for inv in invs for op in inv.ops),
+        "compile_seconds_by_stage": compile_stages(),
+        "breakdown": breakdown}
+    params = plane_params(model)
+    del model, opt, cstep
+    torch._dynamo.reset()
+    return report, params
+
+
+def compile_stages() -> dict:
+    """Seconds ``torch.compile`` spent by stage, summed over its calls."""
+    from torch._dynamo.utils import compilation_time_metrics
+
+    return {name: round(sum(times), 3)
+            for name, times in compilation_time_metrics.items()}
+
+
+def plane_eager(hvd, seed, rank, tokens) -> tuple:
+    """The same steps on the eager plane: plain tensors, the hooks,
+    ``plane="eager"``, each rank its half of every batch."""
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+
+    dev = hvd.device()
+    torch.manual_seed(seed)
+    model = GPT(GPT_SMALL).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=PLANE_LR, fused=True),
+        named_parameters=model.named_parameters(), plane="eager")
+    per = PLANE_BATCH // 2
+    losses, seconds = [], []
+    for i in range(PLANE_STEPS):
+        ids = tokens[i, rank * per:(rank + 1) * per].to(dev)
+        t0 = time.perf_counter()
+        loss = lm_loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(hvd.allreduce(loss.detach(),
+                                    name=f"plane.eager.{i}").item())
+        seconds.append(time.perf_counter() - t0)
+    params = plane_params(model)
+    del model, opt
+    return {"losses": losses, "step_s": seconds}, params
+
+
+def plane_compare(compiled, eager, init) -> dict:
+    """The compiled run's parameters against the eager replay's: the
+    largest element difference and ||update difference|| / ||update||."""
+    max_abs, diff2, upd2 = 0.0, 0.0, 0.0
+    for name, want in eager.items():
+        got = compiled[name]
+        d = (got - want).abs()
+        max_abs = max(max_abs, float(d.max()))
+        diff2 += float((d.double() ** 2).sum())
+        upd2 += float(((want - init[name]).double() ** 2).sum())
+    return {"max_abs": max_abs, "update_rel": (diff2 / upd2) ** 0.5}
+
+
+def plane_work(rank, seed) -> dict:
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.context import HorovodContext
+    from horovod_tpu_torch.models import GPT, GPT_SMALL
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantize as qz
+
+    tokens = plane_tokens(seed)
+    torch.manual_seed(seed)
+    init = plane_params(GPT(GPT_SMALL))
+    hvd.init(device="cuda:0")
+    try:
+        if HorovodContext.instance().core.name != "native":
+            raise AssertionError("the plane ran without the native core")
+        compiled, got = plane_compiled(hvd, fa, qz, seed, rank, tokens)
+        torch.cuda.empty_cache()
+        eager, want = plane_eager(hvd, seed, rank, tokens)
+    finally:
+        hvd.shutdown()
+    return {"rank": rank, "compiled": compiled, "eager": eager,
+            "vs_eager": plane_compare(got, want, init),
+            "params_digest": digest(torch.cat(
+                [got[n].reshape(-1) for n in sorted(got)]))}
+
+
+def check_plane(rep, layers: int) -> None:
+    """Every check of one rank's compiled run (module constants)."""
+    c = rep["compiled"]
+    want = {n: layers if n in FLASH_CATEGORIES else 0
+            for n in c["launches"][0]}
+    for i, rose in enumerate(c["launches"]):
+        if rose != want:
+            raise AssertionError(f"rank {rep['rank']} compiled step {i}: "
+                                 f"launches {rose}, expected {want}")
+    if len(c["inventories"]) != 1:
+        raise AssertionError(f"rank {rep['rank']}: {len(c['inventories'])} "
+                             "inventories, expected one")
+    inv = c["inventories"][0]
+    if set(inv["kinds"]) != {"all-reduce"} or inv["world"] != 2:
+        raise AssertionError(f"inventory kinds {inv['kinds']} at world "
+                             f"{inv['world']}")
+    if inv["raw_bytes"] != c["param_bytes"] or \
+            inv["wire_bytes"] != c["ring_wire_bytes"]:
+        raise AssertionError(f"inventory bytes {inv['raw_bytes']} raw, "
+                             f"{inv['wire_bytes']} wire; parameters "
+                             f"{c['param_bytes']}, ring model "
+                             f"{c['ring_wire_bytes']}")
+    if (c["gspmd_raw"], c["gspmd_wire"]) != (inv["raw_bytes"],
+                                             inv["wire_bytes"]):
+        raise AssertionError(f"data_plane_stats gspmd {c['gspmd_raw']}, "
+                             f"{c['gspmd_wire']} against the inventory")
+    if c["plane_counters"] != {"gspmd": 1}:
+        raise AssertionError(f"plane counters {c['plane_counters']}")
+    if not c["plane_tags"] or set(c["plane_tags"]) != {1}:
+        raise AssertionError(f"step-trace plane tags {c['plane_tags']}")
+    losses = c["losses"] + rep["eager"]["losses"]
+    if not all(abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(c["losses"][0] - rep["eager"]["losses"][0]) > \
+            PLANE_LOSS_RTOL * abs(rep["eager"]["losses"][0]):
+        raise AssertionError(f"first losses {c['losses'][0]} compiled, "
+                             f"{rep['eager']['losses'][0]} eager")
+    cmp = rep["vs_eager"]
+    if cmp["update_rel"] > PLANE_UPDATE_RTOL:
+        raise AssertionError(f"parameters against the eager replay {cmp}, "
+                             f"limit {PLANE_UPDATE_RTOL}")
+
+
+def plane_world1(hvd, seed, steps=2, batch=8, seq=1024) -> dict:
+    """World 1 over NCCL: ``plane="gspmd"`` counts ``demote_world1`` and
+    trains bitwise as ``plane="eager"`` does."""
+    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.ops import gspmd_plane as gp
+
+    hvd.init()
+    try:
+        dev = hvd.device()
+        gen = torch.Generator().manual_seed(seed + 13)
+        ids = torch.randint(0, GPT_SMALL.vocab_size, (batch, seq),
+                            generator=gen).to(dev)
+        digests, counters = {}, {}
+        for plane in ("gspmd", "eager"):
+            gp.reset_plane_counters()
+            torch.manual_seed(seed)
+            model = GPT(GPT_SMALL).to(dev)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=PLANE_LR, fused=True),
+                named_parameters=model.named_parameters(), plane=plane)
+            counters[plane] = gp.plane_counters()
+            for _ in range(steps):
+                lm_loss(model(ids), ids).backward()
+                opt.step()
+                opt.zero_grad()
+            digests[plane] = digest(torch.cat(
+                [p.detach().reshape(-1).float()
+                 for p in model.parameters()]))
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+    if counters != {"gspmd": {"demote_world1": 1}, "eager": {}}:
+        raise AssertionError(f"world-1 plane counters {counters}")
+    if digests["gspmd"] != digests["eager"]:
+        raise AssertionError("world-1 gspmd request differs from eager")
+    return {"counters": counters, "bitwise": True,
+            "digest": digests["eager"]}
+
+
+class CompiledPlane:
+    """The ``compiled_plane`` phase: the world-1 demotion in this process,
+    then two ranks on ``cuda:0`` (gloo: NCCL refuses two ranks on one
+    card) running the compiled gspmd plane and its eager replay, started
+    by the constructor; :meth:`result` waits for them and makes every
+    check of :func:`check_plane`, and both ranks' final parameters must be
+    bitwise equal.  Their compile is mostly host work, so ``main`` runs
+    the elastic phase meanwhile."""
+
+    def __init__(self, hvd, seed, gpu_operations):
+        import tempfile
+
+        self.t0 = time.perf_counter()
+        self.world1, seconds = timed_phase(plane_world1, hvd, seed)
+        self.world1["seconds"] = seconds
+        self.cache = tempfile.mkdtemp(prefix="hvd_plane_")
+        self.pair = RankPair(plane_rank, (seed, gpu_operations, self.cache))
+
+    def result(self) -> tuple:
+        import shutil
+
+        from horovod_tpu_torch.models import GPT_SMALL
+
+        try:
+            reports, codes = self.pair.collect(PLANE_TIMEOUT_S)
+        finally:
+            shutil.rmtree(self.cache, ignore_errors=True)
+        for rep in reports.values():
+            if "error" in rep:
+                raise AssertionError(f"compiled-plane rank {rep['rank']} "
+                                     f"failed:\n{rep['error']}")
+        if codes != [0, 0]:
+            raise AssertionError(f"compiled-plane exit codes {codes}")
+        for rep in reports.values():
+            check_plane(rep, GPT_SMALL.num_layers)
+        if reports[0]["params_digest"] != reports[1]["params_digest"]:
+            raise AssertionError("the ranks' compiled parameters differ")
+        return ({"world1": self.world1, "ranks": [reports[0], reports[1]]},
+                round(time.perf_counter() - self.t0, 3))
+
+
 def integration_launches(res, name) -> dict:
     """A kernel's launches on each integration path (per rank where there
     are two)."""
@@ -4745,6 +5153,31 @@ def integration_launches(res, name) -> dict:
             "ray_executor": [r["launches"][name]
                              for r in res["ray_executor"]],
             "elastic_ray": [r["launches"][name] for r in res["elastic_ray"]]}
+
+
+def plane_launches(res, name) -> list:
+    """A kernel's launches in each compiled-plane step, per rank."""
+    return [[step[name] for step in rep["compiled"]["launches"]]
+            for rep in res["ranks"]]
+
+
+def print_plane(plane, secs, gpu_operations, card, beside) -> None:
+    """The ``compiled_plane`` phase's lines."""
+    print(json.dumps({"phase": "compiled_plane", "part": "world1_demotion",
+                      "model": "GPT_SMALL", "card": card,
+                      **plane["world1"]}), flush=True)
+    for rep in plane["ranks"]:
+        print(json.dumps({"phase": "compiled_plane", "part": "world2",
+                          "model": "GPT_SMALL", "batch": PLANE_BATCH,
+                          "seq": PLANE_SEQ, "steps": PLANE_STEPS,
+                          "gpu_operations": gpu_operations,
+                          "tolerances": {"loss_rtol": PLANE_LOSS_RTOL,
+                                         "update_rtol": PLANE_UPDATE_RTOL},
+                          "note": "two ranks share one card over gloo "
+                                  f"staged through the host{beside}: times "
+                                  "are not a speed result",
+                          "card": card, "seconds": secs, **rep}),
+              flush=True)
 
 
 def timed_phase(fn, *args):
@@ -4970,7 +5403,14 @@ def main() -> int:
     print(json.dumps({"phase": "parallel", "part": "replay",
                       "card": card, **par["replay"]}), flush=True)
     torch.cuda.empty_cache()
-    ela, secs = timed_phase(elastic_phase, args.seed, gpu_operations)
+    # The compiled-plane ranks compile (host work, minutes) while the
+    # elastic jobs run; both finish before the fleet phase's timing.
+    compiled = CompiledPlane(hvd, args.seed, gpu_operations)
+    try:
+        ela, secs = timed_phase(elastic_phase, args.seed, gpu_operations)
+    except BaseException:
+        compiled.pair.kill()
+        raise
     for label, run in ela["runs"].items():
         print(json.dumps({"phase": "elastic", "part": label,
                           "model": "GPT_SMALL", "world": 2,
@@ -4980,8 +5420,9 @@ def main() -> int:
                           else None,
                           "gpu_operations": gpu_operations,
                           "note": "two ranks share one card over gloo "
-                                  "staged through the host: times are not "
-                                  "a speed result",
+                                  "staged through the host, beside the "
+                                  "compiled-plane phase's ranks: times are "
+                                  "not a speed result",
                           "card": card, **run}), flush=True)
     print(json.dumps({"phase": "elastic", "part": "compare", "card": card,
                       "seconds": secs,
@@ -4991,6 +5432,9 @@ def main() -> int:
                       "vs_uninterrupted_bitwise":
                           ela["vs_uninterrupted_bitwise"]}),
           flush=True)
+    plane, plane_secs = compiled.result()
+    print_plane(plane, plane_secs, gpu_operations, card,
+                ", beside the elastic phase's jobs")
     torch.cuda.empty_cache()
     fleet, secs = timed_phase(fleet_phase, args.seed, gpu_operations)
     print(json.dumps({"phase": "fleet", "model": "GPT_SMALL",
@@ -5052,7 +5496,9 @@ def main() -> int:
                 for r in par["ranks"]],
             "launches_elastic": elastic_launches[name],
             "launches_fleet": fleet["launches"][name],
-            "launches_integrations": integration_launches(integ, name)})
+            "launches_integrations": integration_launches(integ, name),
+            "launches_compiled_plane_per_step": plane_launches(plane,
+                                                               name)})
     for name, (replaces, tpu_kernel) in CODEC_KERNELS.items():
         ms, plain, (bound_ms, bound_by), lib = codec_timing[name]
         summary.append({
@@ -5076,7 +5522,9 @@ def main() -> int:
                                   for r in par["ranks"]],
             "launches_elastic": elastic_launches[name],
             "launches_fleet": fleet["launches"][name],
-            "launches_integrations": integration_launches(integ, name)})
+            "launches_integrations": integration_launches(integ, name),
+            "launches_compiled_plane_per_step": plane_launches(plane,
+                                                               name)})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -163,6 +163,22 @@ class NativeCoreError(RuntimeError):
     pass
 
 
+# The keys of data_plane_stats(), the reference's.
+DATA_PLANE_STATS = ("data_sent_local", "data_sent_xhost", "data_raw_local",
+                    "data_raw_xhost", "device_raw", "device_encoded",
+                    "gspmd_raw", "gspmd_wire")
+
+
+def init_plane_arg(cfg: Config) -> int:
+    """``hvd_init``'s data-plane argument, by the reference's rule
+    (``horovod_tpu/_core.py``): 0 for "auto" or "eager", 1 for "gspmd",
+    -1 at world 1 (no gspmd mesh can exist) or under an active device
+    codec (it owns the reduction)."""
+    if cfg.size < 2 or cfg.wire_compression_device != "none":
+        return -1
+    return {"auto": 0, "eager": 0, "gspmd": 1}.get(cfg.data_plane, 0)
+
+
 def check_fault_spec(spec: str) -> str:
     """Validate a ``HOROVOD_FAULT_INJECT`` spec against the core's parser:
     "" when it is well formed, else the message ``hvd.init()`` would fail
@@ -215,13 +231,15 @@ class NativeCore(CoreBackend):
             controller = "socket" if cfg.size > 1 else "local"
         # The device plane's codec comes from config; the schedule arm is
         # pinned (-1) below 4 ranks, where only the plain ring is feasible.
-        # The compiler data plane does not exist in the port: pinned.
+        # The data plane: 0 eager ("auto" starts eager), 1 gspmd, pinned
+        # (-1) where no gspmd mesh can exist (one rank) or the quantized
+        # device codec owns the reduction (ops/gspmd_plane.py).
         qdev = _DEVICE_CODECS.get(cfg.wire_compression_device, 0)
         qsched = _SCHEDULES[resolve_device_schedule(cfg.size,
                                                     cfg.device_schedule)]
         if cfg.size < 4:
             qsched = -1
-        plane = -1
+        plane = init_plane_arg(cfg)
         rc = self._lib.hvd_init(
             cfg.rank, cfg.size, cfg.local_rank, cfg.local_size,
             controller.encode(), cfg.rendezvous_addr.encode(),
@@ -257,9 +275,12 @@ class NativeCore(CoreBackend):
         # collectives' wire bytes into the metrics registry.
         self._lib.hvd_elastic_generation_set(
             get_int("HOROVOD_ELASTIC_GENERATION", 0))
-        from .ops import quantize
+        from .ops import hlo_inspect, quantize
 
         quantize.set_native_byte_sink(self._lib.hvd_device_plane_note)
+        # Each inspected gspmd step's inventory: the gspmd byte counters,
+        # a type-16 flight event and an HLO_INSPECT timeline instant.
+        hlo_inspect.set_native_sink(self._lib.hvd_gspmd_plane_note)
 
     def migrate_note(self, phase: int, nbytes: int,
                      source_rank: int = -1) -> None:
@@ -273,9 +294,10 @@ class NativeCore(CoreBackend):
         self._lib.hvd_step_trace_note_plane(int(plane))
 
     def shutdown(self) -> None:
-        from .ops import quantize
+        from .ops import hlo_inspect, quantize
 
         quantize.set_native_byte_sink(None)
+        hlo_inspect.set_native_sink(None)
         if self._lib.hvd_is_initialized():
             self._lib.hvd_shutdown()
 
@@ -492,12 +514,15 @@ class NativeCore(CoreBackend):
 
     def data_plane_stats(self) -> dict:
         """Cumulative host-ring bytes this rank sent (on the wire and before
-        the host codec), to ranks on this host and across hosts."""
-        vals = [ctypes.c_longlong() for _ in range(4)]
-        self._lib.hvd_data_plane_stats2(*map(ctypes.byref, vals))
-        return dict(zip(("data_sent_local", "data_sent_xhost",
-                         "data_raw_local", "data_raw_xhost"),
-                        (v.value for v in vals)))
+        the host codec), to ranks on this host and across hosts; the
+        device plane's quantized bytes (``device_raw`` / ``device_encoded``)
+        and the gspmd plane's inventoried ones (``gspmd_raw`` /
+        ``gspmd_wire``, ops/hlo_inspect.py), from the core's registry."""
+        vals = [ctypes.c_longlong() for _ in range(8)]
+        self._lib.hvd_data_plane_stats2(*map(ctypes.byref, vals[:4]))
+        self._lib.hvd_device_plane_stats(*map(ctypes.byref, vals[4:6]))
+        self._lib.hvd_gspmd_plane_stats(*map(ctypes.byref, vals[6:]))
+        return dict(zip(DATA_PLANE_STATS, (v.value for v in vals)))
 
     def metrics(self) -> dict:
         """The metrics registry as a dict: counters, gauges and

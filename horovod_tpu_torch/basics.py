@@ -285,8 +285,17 @@ def metrics() -> dict:
     stall warnings, the device plane's quantized wire bytes) and
     power-of-two-bucket histograms (negotiation wait, ring hops); rank 0
     adds ``cluster`` and ``straggler_report``.  The core counts only under
-    ``HOROVOD_METRICS=1`` (``enabled``); empty on the pure-Python core."""
-    return _core().metrics()
+    ``HOROVOD_METRICS=1`` (``enabled``); empty on the pure-Python core.  A
+    non-empty snapshot also carries ``plane_counters``, the gspmd plane's
+    selections and demotions (``ops/gspmd_plane.py``), when any were
+    counted."""
+    from .ops.gspmd_plane import plane_counters
+
+    dump = _core().metrics()
+    counts = plane_counters()
+    if dump and counts:
+        dump["plane_counters"] = counts
+    return dump
 
 
 def metrics_prometheus() -> str:

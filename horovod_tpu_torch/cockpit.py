@@ -256,8 +256,8 @@ class CockpitServer:
 
 
 # Step-trace plane tag -> /state name (step_trace.h: -1 unknown, 0
-# eager, 1 gspmd; the port runs the eager plane only).  A fleet record
-# without a "plane" key degrades to "?" as -1 does.
+# eager, 1 gspmd).  A fleet record without a "plane" key degrades to "?"
+# as -1 does.
 _PLANE_NAMES = {0: "eager", 1: "gspmd"}
 
 

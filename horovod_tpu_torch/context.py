@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .exceptions import HorovodInternalError
+from .ops import hlo_inspect
 from .ops.device_plane import DevicePlane
 from .runtime import CoreBackend, FusedResponse, PyLocalCore, TensorEntry
 from .utils.env import Config, get_bool
@@ -170,8 +171,10 @@ class HorovodContext:
         self.stats = {"responses": 0, "tensors": 0}
         self.last_enqueue_at = 0.0
         self.core.start(dataclasses.replace(cfg, rendezvous_port=core_port))
-        # The step trace's plane tag: the eager plane, the port's only one.
+        # The step trace's plane tag starts eager; the optimizer's marks
+        # (ops/hlo_inspect.mark_plane) change it from here.
         self.core.step_trace_note_plane(0)
+        hlo_inspect._STEP_PLANE[0] = 0
         self.device_plane = DevicePlane(self.core, cfg, device, backend)
         # Set 0 runs on the default (world) group.
         self.device_plane.register(0, None, range(cfg.size))

@@ -24,7 +24,15 @@ the reference's ``nn.Dropout`` does, when ``forward`` is called with
 ``deterministic=False`` on a module in training mode (the default
 ``deterministic=True`` is the reference's eval); torch's generator draws
 the mask, so only the keep rate and the ``1/(1-p)`` scale match the
-reference's, not the mask.  Parameter names follow
+reference's, not the mask.
+
+The forward is DTensor-aware for the gspmd data plane
+(``ops/gspmd_plane.py``): given ``Shard(0)`` ids on a mesh and replicated
+DTensor parameters, the positions become a replicated DTensor on that
+mesh, attention (dense and flash alike) runs per rank on its batch shard
+through ``local_map``, and :func:`lm_loss` is the global mean of the
+per-token losses, with no collective in the forward.  Plain tensors take
+the plain path unchanged.  Parameter names follow
 the flax tree (``h.<i>.attn.qkv`` for ``h_<i>/attn/qkv``, ...), so
 ``models.convert.gpt_params_from_jax`` maps one onto the other.
 """
@@ -32,6 +40,7 @@ the flax tree (``h.<i>.attn.qkv`` for ``h_<i>/attn/qkv``, ...), so
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Optional
 
 import torch
@@ -68,6 +77,32 @@ GPT_TINY = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                      dtype=torch.float32)
 
 
+def _mesh_of(x):
+    """The ``DeviceMesh`` of a DTensor, None for a plain tensor (DTensor's
+    module is loaded whenever a DTensor exists)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and isinstance(x, dt.DTensor):
+        return x.device_mesh
+    return None
+
+
+def _per_shard(fn, mesh, *xs):
+    """``fn`` applied to each rank's shards of DTensors ``xs`` that are
+    sharded on the batch dim (or replicated), its output placed as the
+    first input is.  Only activations enter: a replicated parameter's
+    gradient would come back labelled replicated without being reduced."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = [tuple(x.placements) for x in xs]
+    for pl in placements:
+        if any(p != Shard(0) and p != Replicate() for p in pl):
+            raise ValueError(f"GPT runs DTensors sharded on the batch dim "
+                             f"only, got placements {pl}")
+    return local_map(fn, list(placements[0]), in_placements=tuple(placements),
+                     device_mesh=mesh)(*xs)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -87,7 +122,12 @@ class CausalSelfAttention(nn.Module):
                                  use_flash=cfg.sp_use_flash)
         else:
             attend = flash_attention if cfg.use_flash else dense_attention
-            ctx = attend(q, k, v, causal=True)
+            mesh = _mesh_of(q)
+            if mesh is None:
+                ctx = attend(q, k, v, causal=True)
+            else:
+                ctx = _per_shard(lambda q, k, v: attend(q, k, v, causal=True),
+                                 mesh, q, k, v)
         return _linear(ctx.reshape(b, s, cfg.hidden_size), self.out,
                        cfg.dtype)
 
@@ -133,6 +173,12 @@ class GPT(nn.Module):
         offset = 0 if cfg.sp_axis_name is None else \
             axis_index(cfg.sp_axis_name) * s
         pos = torch.arange(offset, offset + s, device=input_ids.device)[None]
+        mesh = _mesh_of(input_ids)
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor, Replicate
+
+            pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
         # Gather, then cast: the same values as flax's cast-then-gather.
         x = (self.wte(input_ids).to(dt) + self.wpe(pos).to(dt))
         for block in self.h:
@@ -149,6 +195,17 @@ def lm_loss(logits, input_ids):
     """Next-token cross entropy (shifted), mean over positions.  On a
     sequence shard the shift stays inside the shard, so the one token at
     each boundary between shards is not predicted (as the reference's
-    ``examples/jax_gpt_long_context.py`` says)."""
+    ``examples/jax_gpt_long_context.py`` says).  On ``Shard(0)`` DTensors
+    each rank takes its shard's per-token losses and the mean of the
+    DTensor is the global mean, ``Partial`` until read."""
+    mesh = _mesh_of(logits)
+    if mesh is None:
+        return F.cross_entropy(logits[:, :-1].flatten(0, 1).float(),
+                               input_ids[:, 1:].flatten())
+    return _per_shard(_token_losses, mesh, logits, input_ids).mean()
+
+
+def _token_losses(logits, input_ids):
     return F.cross_entropy(logits[:, :-1].flatten(0, 1).float(),
-                           input_ids[:, 1:].flatten())
+                           input_ids[:, 1:].flatten(),
+                           reduction="none").view(logits.shape[0], -1)

@@ -22,11 +22,13 @@ takes the plain version, which recomputes each tile's arithmetic as the
 Pallas body does: online softmax over kv tiles for the forward, P rebuilt
 from lse for the backward.  ``LAUNCHES`` counts kernel launches.
 
-The differentiable core is a ``torch.autograd.Function`` returning
-``(out, lse)``.  Its backward carries the ``dlse`` fold of the JAX custom
-VJP: ``delta = rowsum(dO * O) - dlse``, which K5 computes before its key
-loop and hands to K6 (the plain K5 likewise returns it), so a loss that
-uses lse (ring attention's merge) differentiates through the same kernels.
+The kernels are the custom operators ``hvd_torch::flash_fwd``,
+``::flash_bwd_dq`` and ``::flash_bwd_dkv``, so ``torch.compile`` keeps them
+in its graph.  The forward's autograd returns ``(out, lse)``; its backward
+carries the ``dlse`` fold of the JAX custom VJP: ``delta = rowsum(dO * O) -
+dlse``, which K5 computes before its key loop and hands to K6 (the plain
+K5 likewise returns it), so a loss that uses lse (ring attention's merge)
+differentiates through the same kernels.
 """
 
 from __future__ import annotations
@@ -314,42 +316,98 @@ def _on_cuda(*tensors) -> bool:
                      "expected all on one CUDA device or all on the CPU")
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, block_q, block_k):
-        if _on_cuda(q, k, v):
-            out, lse = flash_fwd_cuda(q, k, v, sm_scale, causal)
-        else:
-            out, lse = flash_fwd_reference(q, k, v, sm_scale, causal,
-                                           block_k)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (sm_scale, causal, block_q, block_k)
-        ctx.set_materialize_grads(False)
-        return out, lse
+# K4, K5 and K6 are custom operators, so ``torch.compile`` traces attention
+# without a graph break and keeps the kernels in the compiled graph (nothing
+# can swap another attention in for them); each runs its kernel on a CUDA
+# tensor and its plain version on a CPU one.  The fake implementations give
+# the compiler the output shapes.
 
-    @staticmethod
-    def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        sm_scale, causal, block_q, block_k = ctx.args
-        if dout is None:
-            dout = torch.zeros_like(out)
-        # K5 folds the lse cotangent into delta = rowsum(dO * O) - dlse (as
-        # _flash_bhsd_lse_bwd does) and hands delta to K6.
-        if _on_cuda(q, k, v, dout):
-            if not _kernel_layout(dout):
-                dout = dout.contiguous()  # the incoming gradient's layout
-            if dlse is not None:
-                dlse = dlse.float().contiguous()  # e.g. an expanded ones
-            dq, delta = flash_bwd_dq_cuda(q, k, v, dout, out, lse, dlse,
-                                          sm_scale, causal)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale,
-                                        causal)
-        else:
-            dq, delta = flash_bwd_dq_reference(q, k, v, dout, out, lse, dlse,
-                                               sm_scale, causal, block_k)
-            dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta,
-                                             sm_scale, causal, block_q)
-        return dq, dk, dv, None, None, None, None
+@torch.library.custom_op("hvd_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sm_scale: float, causal: bool, block_q: int,
+                  block_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cuda(q, k, v):
+        return flash_fwd_cuda(q, k, v, sm_scale, causal)
+    out, lse = flash_fwd_reference(q, k, v, sm_scale, causal, block_k)
+    return out.contiguous(), lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, sm_scale, causal, block_q, block_k):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("hvd_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                     dlse: Optional[torch.Tensor], sm_scale: float,
+                     causal: bool, block_k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cuda(q, k, v, dout):
+        if not _kernel_layout(dout):
+            dout = dout.contiguous()  # the incoming gradient's layout
+        if dlse is not None:
+            dlse = dlse.float().contiguous()  # e.g. an expanded ones
+        return flash_bwd_dq_cuda(q, k, v, dout, out, lse, dlse, sm_scale,
+                                 causal)
+    dq, delta = flash_bwd_dq_reference(q, k, v, dout, out, lse, dlse,
+                                       sm_scale, causal, block_k)
+    return dq.contiguous(), delta
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, dout, out, lse, dlse, sm_scale, causal, block_k):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("hvd_torch::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      dout: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, sm_scale: float, causal: bool,
+                      block_q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cuda(q, k, v, dout):
+        if not _kernel_layout(dout):
+            dout = dout.contiguous()
+        return flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, sm_scale,
+                                  causal)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, delta, sm_scale,
+                                     causal, block_q)
+    return dk.contiguous(), dv.contiguous()
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, dout, lse, delta, sm_scale, causal, block_q):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, sm_scale, causal, block_q, block_k = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.args = (sm_scale, causal, block_q, block_k)
+    # An output the loss does not use (lse, on GPT's path) arrives as None,
+    # not as a filled zeros tensor that K5 would read.
+    ctx.set_materialize_grads(False)
+
+
+def _flash_backward(ctx, dout, dlse):
+    # K5 folds the lse cotangent into delta = rowsum(dO * O) - dlse (as
+    # _flash_bhsd_lse_bwd does) and hands delta to K6.
+    q, k, v, out, lse = ctx.saved_tensors
+    sm_scale, causal, block_q, block_k = ctx.args
+    if dout is None:
+        dout = torch.zeros_like(out)
+    dq, delta = _flash_bwd_dq_op(q, k, v, dout, out, lse, dlse, sm_scale,
+                                 causal, block_k)
+    dk, dv = _flash_bwd_dkv_op(q, k, v, dout, lse, delta, sm_scale, causal,
+                               block_q)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False,
@@ -358,12 +416,13 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     """Attention over ``[B, S, H, D]`` returning ``(out, lse)``, lse shaped
     ``[B, H, S]`` fp32.  ``block_q``/``block_k`` tile the plain version
     (the CPU path); the kernels use their own tiles (csrc)."""
+    _on_cuda(q, k, v)  # all on one CUDA device or all on the CPU
     s, d = q.shape[1], q.shape[-1]
     sm_scale = d ** -0.5 if scale is None else scale
     block_q, block_k = min(block_q, s), min(block_k, s)
     if causal and block_q != block_k:
         block_q = block_k = min(block_q, block_k)
-    return _FlashAttention.apply(q, k, v, sm_scale, causal, block_q, block_k)
+    return _flash_fwd_op(q, k, v, sm_scale, causal, block_q, block_k)
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -54,6 +54,25 @@ into the parameters.  :func:`clip_by_global_norm` is the torch form of
 :func:`allreduce_gradients` averages a dict, list or tuple of gradients
 through the spine without an optimizer.
 
+``plane="gspmd"`` is the compiler data plane (``ops/gspmd_plane.py``), the
+counterpart of the reference's ``plane=`` argument.  Parameters that are
+replicated DTensors (``distribute_module``) and a ``Shard(0)`` batch leave
+``Partial`` gradients; ``synchronize()`` pins each fp32 one replicated on
+the plane's mesh (``mesh=``, default the 1-D batch mesh over every rank),
+which all-reduces it, inside the compiled step when the step is compiled
+(``ops/hlo_inspect.instrument``).  The grad hooks never average a DTensor
+gradient: DTensor reduces it, an fp32 average over the whole mesh, so
+with DTensor parameters an option asking for another reduction (a device
+codec, ``compression``, an op other than Average, a process set other
+than the global one, ZeRO-1) raises ``ValueError``.  ``"auto"`` (the
+default, or HOROVOD_DATA_PLANE) adapts to the parameters: DTensor ones on
+the plane's mesh take the pin, plain ones the hooks, bit-identically to
+``plane="eager"``; a step that pins reads as gspmd.  A request that
+cannot compose (accumulation, process sets, predivide, ZeRO-1, an active
+device codec, a world of one) demotes to eager at construction, counted
+under the reference's reason names when ``"gspmd"`` was asked for
+explicitly.
+
 Like the reference, the factory builds a dynamic subclass of the wrapped
 optimizer's own class, so the result isinstance-checks as (say)
 ``torch.optim.AdamW`` and keeps working with LR schedulers.
@@ -63,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import sys
 from typing import Iterable, Optional, Tuple
 
 import torch
@@ -70,6 +90,8 @@ import torch
 from . import basics, mpi_ops
 from .compression import Compression
 from .ops import collectives as _ops
+from .ops import gspmd_plane as _gspmd
+from .ops import hlo_inspect as _hlo
 from .ops import quantize as _qz
 from .process_sets import ProcessSet, effective_size
 from .wire import ReduceOp
@@ -84,7 +106,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                  process_set: Optional[ProcessSet] = None,
                  sparse_as_dense: bool = False, sparse_params=None,
                  num_groups: Optional[int] = None, groups=None,
-                 ef_codec: str = "none"):
+                 ef_codec: str = "none", plane=("eager", None)):
         super(self.__class__, self).__init__(params)
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
@@ -160,8 +182,28 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._ef_ready: set = set()
         self._ef_residuals: dict = {}
         self._should_sync = True
+        # The compiler data plane (see DistributedOptimizer): the DTensor
+        # parameters, whose gradients no hook averages; the plane and its
+        # mesh ("auto" resolves here, silently, once DTensor parameters
+        # exist); the fp32 ones on that mesh, whose gradients are pinned.
+        self._dparams = [p for p in _dtensors(self._requires_update)
+                         if p.requires_grad]
+        self._dpids = {id(p) for p in self._dparams}
+        self._plane, self._plane_mesh = plane
+        if self._plane == "auto":
+            self._plane, self._plane_mesh = _gspmd.resolve_plane(
+                "auto", mesh=self._plane_mesh, device_codec=ef_codec,
+                count=False) if self._dparams else ("eager", None)
+        self._pinned = []
+        if self._plane_mesh is not None:
+            on_mesh = [p for p in self._dparams
+                       if p.device_mesh == self._plane_mesh]
+            self._pinned = [p for p in on_mesh if p.dtype == torch.float32]
+            for _ in range(len(on_mesh) - len(self._pinned)):
+                _gspmd.note_demotion("demote_dtype")
         self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
-                       for p in self._requires_update]
+                       for p in self._requires_update
+                       if id(p) not in self._dpids]
 
     def _add_group(self, pids) -> None:
         g = len(self._group_members)
@@ -179,6 +221,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._group_fired.append(set())
 
     def _hook(self, p: torch.nn.Parameter) -> None:
+        # Registered on plain parameters only: a DTensor gradient is
+        # already the global gradient's share (``Partial``).
         pid = id(p)
         self._passes[pid] = self._passes.get(pid, 0) + 1
         if self._passes[pid] >= self._bpps:
@@ -288,10 +332,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         A parameter whose hook did not fire this round (a branch the data
         skipped) is reduced here with its current, possibly zero, gradient,
         so every rank negotiates the same collectives.  The quantized rings
-        of error feedback run here, in parameter order."""
+        of error feedback run here, in parameter order.  DTensor gradients
+        are pinned on the gspmd plane (:meth:`_synchronize_dtensors`)."""
+        pinned = self._dparams and self._synchronize_dtensors()
+        if len(self._dparams) == len(self._requires_update):
+            return
+        if not pinned:
+            _hlo.mark_plane("eager")
         for p in self._requires_update:
             pid = id(p)
-            if pid in self._handles or pid in self._ef_ready:
+            if pid in self._handles or pid in self._ef_ready or \
+                    pid in self._dpids:
                 continue
             g = self._group_of.get(pid)
             if g is not None and pid in self._group_fired[g]:
@@ -325,6 +376,25 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         finally:
             self._handles.clear()
             self._ef_ready.clear()
+
+    def _synchronize_dtensors(self) -> bool:
+        """The gspmd plane: pin every fp32 DTensor gradient on the plane's
+        mesh replicated, which all-reduces a ``Partial`` one (inside the
+        compiled step when the step is compiled).  A gradient of another
+        dtype or on another mesh, and every DTensor gradient on the eager
+        plane, stays as backprop left it: DTensor reduces it where an op
+        needs its value.  Marks the step "gspmd" and returns True where
+        the plane pins, so a step that also averages plain parameters
+        through the hooks still reads as gspmd."""
+        if self._plane_mesh is None:
+            _hlo.mark_plane("eager")
+            return False
+        _hlo.mark_plane("gspmd")
+        for p in self._pinned:
+            if p.grad is not None:
+                p.grad = _gspmd.constrain_grad_leaf(p.grad, self._plane_mesh,
+                                                    count=False)
+        return True
 
     def _reduce_with_error_feedback(self, p: torch.nn.Parameter) -> None:
         residual = self.state.get(p, {}).get("ef_residual")
@@ -375,7 +445,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise AssertionError(
                 "zero_grad called with allreduces in flight; call step() "
                 "or synchronize() first")
-        self._passes = {}
+        # Cleared in place: a compiled step may run this, and rebinding an
+        # attribute of the optimizer there is what torch.compile refuses.
+        self._passes.clear()
         for fired in self._group_fired:
             fired.clear()  # zeroed grads invalidate partial group fires
         return super(self.__class__, self).zero_grad(*args, **kwargs)
@@ -611,8 +683,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          num_groups: Optional[int] = None,
                          groups=None,
                          shard_optimizer_states: bool = False,
-                         device_compression: Optional[str] = None
-                         ) -> torch.optim.Optimizer:
+                         device_compression: Optional[str] = None,
+                         plane: Optional[str] = None,
+                         mesh=None) -> torch.optim.Optimizer:
     """Wrap a torch optimizer so gradients are averaged across ranks during
     backward (reference factory: horovod/torch/optimizer.py).
 
@@ -623,7 +696,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     other than Average and Sum, and an explicit one refuses
     ``backward_passes_per_step`` > 1; a codec from the environment leaves
     accumulating optimizers on the plain path.  Error feedback runs over
-    the whole world: it refuses ``process_set``."""
+    the whole world: it refuses ``process_set``.
+
+    ``plane`` is "auto", "eager" or "gspmd" (None reads
+    HOROVOD_DATA_PLANE) and ``mesh`` the gspmd plane's ``DeviceMesh``
+    (module docstring)."""
     if process_set is not None and not isinstance(process_set, ProcessSet):
         raise TypeError(f"process_set must be a ProcessSet, got "
                         f"{type(process_set).__name__}")
@@ -634,6 +711,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if codec not in _qz.DEVICE_WIRE_CODECS:
         raise ValueError("device_compression must be one of "
                          f"{_qz.DEVICE_WIRE_CODECS}, got {codec!r}")
+    _refuse_dtensor_options(optimizer, compression, op, process_set, codec,
+                            shard_optimizer_states)
+    resolved_plane = _resolve_optimizer_plane(
+        plane, mesh, codec, shard_optimizer_states, backward_passes_per_step,
+        process_set, gradient_predivide_factor)
     if shard_optimizer_states:
         return _sharded(optimizer, named_parameters, compression,
                         backward_passes_per_step, op,
@@ -669,7 +751,77 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,
                process_set, sparse_as_dense, sparse_params, num_groups,
-               groups, codec)
+               groups, codec, resolved_plane)
+
+
+def _dtensors(params) -> list:
+    """The DTensors among ``params`` (none where DTensor is not imported:
+    then no parameter can be one)."""
+    dt = sys.modules.get("torch.distributed.tensor")
+    return [] if dt is None else [p for p in params
+                                  if isinstance(p, dt.DTensor)]
+
+
+def _refuse_dtensor_options(optimizer, compression, op, process_set, codec,
+                            shard_optimizer_states) -> None:
+    """DTensor parameters take no hook: on either plane their gradients
+    are reduced by DTensor itself, an fp32 average over the whole mesh.
+    An option that asks for another reduction cannot apply to them, so it
+    is refused rather than dropped."""
+    if not _dtensors(p for g in optimizer.param_groups for p in g["params"]):
+        return
+    asked = []
+    if codec != "none":
+        asked.append(f"device_compression={codec!r}")
+    if compression is not Compression.none:
+        asked.append("compression")
+    if ReduceOp(op) != ReduceOp.AVERAGE:
+        asked.append(f"op={ReduceOp(op).name}")
+    if process_set is not None and process_set.process_set_id != 0:
+        asked.append("process_set")
+    if shard_optimizer_states:
+        asked.append("shard_optimizer_states")
+    if asked:
+        raise ValueError(
+            "DTensor parameters are reduced by DTensor, an fp32 average "
+            "over the whole mesh; " + ", ".join(asked) + " cannot apply to "
+            "them")
+
+
+def _resolve_optimizer_plane(plane, mesh, codec, shard_optimizer_states,
+                             backward_passes_per_step, process_set,
+                             gradient_predivide_factor):
+    """(plane, mesh) at construction, with the reference's order of
+    demotions (``horovod_tpu/optimizer.py:DistributedOptimizer``): the
+    optimizer's own first, then :func:`gspmd_plane.resolve_plane`'s.  Only
+    an explicit "gspmd" request counts them; "auto" stays "auto" (with the
+    caller's mesh) for the optimizer, which resolves it silently once it
+    knows whether it holds DTensor parameters."""
+    from .utils.env import DATA_PLANES
+
+    request = plane if plane is not None else _gspmd.data_plane_default()
+    request = (request or "auto").strip().lower()
+    if request not in DATA_PLANES:
+        raise ValueError(f"plane must be one of {DATA_PLANES}, got "
+                         f"{request!r}")
+    if request == "eager":
+        return "eager", None
+    reason = None
+    if shard_optimizer_states:
+        reason = "demote_sharded"
+    elif backward_passes_per_step != 1:
+        reason = "demote_accum"
+    elif process_set is not None:
+        reason = "demote_process_set"
+    elif gradient_predivide_factor != 1.0:
+        reason = "demote_predivide"
+    if reason is not None:
+        if request == "gspmd":
+            _gspmd.note_demotion(reason)
+        return "eager", None
+    if request == "auto":
+        return "auto", mesh
+    return _gspmd.resolve_plane("gspmd", mesh=mesh, device_codec=codec)
 
 
 def _sharded(optimizer, named_parameters, compression,

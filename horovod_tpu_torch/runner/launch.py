@@ -110,8 +110,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "fp32 (HOROVOD_WIRE_COMPRESSION)")
     p.add_argument("--data-plane", default=None,
                    choices=["auto", "eager", "gspmd"],
-                   help="accepted for reference parity: the port has the "
-                        "eager plane only (HOROVOD_DATA_PLANE)")
+                   help="the plane DistributedOptimizer reduces gradients "
+                        "on: 'eager' (the negotiated spine's grad hooks), "
+                        "'gspmd' (DTensor gradients pinned replicated, the "
+                        "all-reduce inside the compiled step), or 'auto' "
+                        "(gspmd for DTensor parameters where it composes) "
+                        "(HOROVOD_DATA_PLANE)")
     p.add_argument("--control-tree", default=None,
                    choices=["auto", "on", "off"],
                    help="leader-tree control plane (protocol v12): host "

@@ -4,9 +4,10 @@ negotiation core and the device plane's codec.
 Own copy of the part of ``horovod_tpu/utils/env.py`` this package needs
 (``Config.from_env``'s identity, rendezvous and core fields -- every value
 ``hvd_init`` takes -- and the ``HOROVOD_WIRE_COMPRESSION``,
-``HOROVOD_DEVICE_SCHEDULE`` and ``HOROVOD_WIRE_COMPRESSION_MIN_BYTES``
-parsers), under the same variable names and defaults, so a launcher that
-starts ranks of the JAX package starts ranks of this one unchanged.  As
+``HOROVOD_DEVICE_SCHEDULE``, ``HOROVOD_WIRE_COMPRESSION_MIN_BYTES`` and
+``HOROVOD_DATA_PLANE`` parsers, and ``HOROVOD_HLO_INSPECT``), under the
+same variable names and defaults, so a launcher that starts ranks of the
+JAX package starts ranks of this one unchanged.  As
 there, the flight recorder and the step trace are on unless
 ``HOROVOD_FLIGHT_RECORDER`` / ``HOROVOD_STEP_TRACE`` turn them off, and the
 timeline (``HOROVOD_TIMELINE``) and the metrics registry
@@ -34,6 +35,12 @@ DEVICE_WIRE_COMPRESSION_CODECS = ("none", "int8", "int4", "int8g")
 # Ring schedules of the quantized collectives; 'auto' resolves from the
 # world size (ops/collectives.py:resolve_device_schedule).
 DEVICE_SCHEDULES = ("auto", "ring", "bidi", "torus")
+# Gradient-exchange planes DistributedOptimizer can run (ops/gspmd_plane.py):
+# 'eager' reduces through the negotiated spine's hooks, 'gspmd' pins DTensor
+# gradients replicated and lets the compiled step carry the all-reduce,
+# 'auto' takes gspmd where it composes and demotes deterministically
+# otherwise.
+DATA_PLANES = ("auto", "eager", "gspmd")
 # Payload floor below which a quantized collective demotes to the plain one.
 DEFAULT_WIRE_COMPRESSION_MIN_BYTES = 1 << 16
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, as the reference
@@ -88,6 +95,11 @@ class Config:
     wire_compression_device: str = "none"
     wire_compression_min_bytes: int = DEFAULT_WIRE_COMPRESSION_MIN_BYTES
     device_schedule: str = "auto"
+    # HOROVOD_DATA_PLANE: the plane DistributedOptimizer resolves ("auto" |
+    # "eager" | "gspmd"), and HOROVOD_HLO_INSPECT: the inventory of the
+    # compiled gspmd steps' collectives (ops/hlo_inspect.py), on by default.
+    data_plane: str = "auto"
+    hlo_inspect_enabled: bool = True
     # The negotiation core (hvd_init's arguments).  ``controller`` is auto
     # (socket above one rank), local, socket, or python for the pure-Python
     # core; the core's own rendezvous port is chosen by rank 0 at init and
@@ -160,6 +172,8 @@ class Config:
             wire_compression_device=get_wire_compression_planes()[1],
             wire_compression_min_bytes=get_wire_compression_min_bytes(),
             device_schedule=get_device_schedule(),
+            data_plane=get_data_plane(),
+            hlo_inspect_enabled=get_bool("HOROVOD_HLO_INSPECT", True),
             controller=env.get("HOROVOD_CONTROLLER", "auto").lower(),
             fusion_threshold_bytes=get_int("HOROVOD_FUSION_THRESHOLD",
                                            DEFAULT_FUSION_THRESHOLD),
@@ -227,6 +241,21 @@ def get_device_schedule() -> str:
     get_logger().warning(
         "HOROVOD_DEVICE_SCHEDULE=%r: not one of %s; using 'auto'",
         raw, "/".join(DEVICE_SCHEDULES))
+    return "auto"
+
+
+def get_data_plane() -> str:
+    """Data-plane request from HOROVOD_DATA_PLANE (default 'auto').
+    Unrecognised values warn and fall back to 'auto': plane resolution
+    (ops/gspmd_plane.py) is deterministic in the mesh and the optimizer's
+    codec, so all ranks fall the same way."""
+    raw = os.environ.get("HOROVOD_DATA_PLANE", "auto")
+    val = raw.strip().lower() or "auto"
+    if val in DATA_PLANES:
+        return val
+    get_logger().warning(
+        "HOROVOD_DATA_PLANE=%r: not one of %s; using 'auto'",
+        raw, "/".join(DATA_PLANES))
     return "auto"
 
 

@@ -349,6 +349,36 @@ def test_same_tree_is_bitwise():
     assert not chip_smoke.same_tree(a, {**a, "step": 3.0})
 
 
+def test_checkpoint_roundtrip_restores_only_after_every_shard_exists(
+        tmp_path, monkeypatch):
+    """Rank 0 of two: its own shard is written when its save returns, the
+    peer's only once the peer has passed the barrier.  Restoring before
+    that finds the step incomplete and returns nothing."""
+    import types
+
+    from horovod_tpu_torch import checkpoint
+
+    monkeypatch.setattr(checkpoint.ShardedCheckpointer, "_world",
+                        lambda self: (0, 2))
+    ckpt_dir = str(tmp_path / "ckpt")
+
+    def barrier():
+        peer = checkpoint.ShardedCheckpointer(ckpt_dir, async_write=False)
+        path = peer._shard_path(3, 1)
+        with open(path, "wb") as f:
+            f.write(open(peer._shard_path(3, 0), "rb").read())
+
+    hvd = types.SimpleNamespace(checkpoint=checkpoint, rank=lambda: 0,
+                                barrier=barrier)
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 3)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    model(torch.randn(2, 4)).sum().backward()
+    opt.step()
+    got = chip_smoke.checkpoint_roundtrip(hvd, model, opt, 3, str(tmp_path))
+    assert got["bitwise"] and got["bytes"] > 0
+
+
 @pytest.mark.parametrize("size", [1, 2, 3])
 def test_fleet_lr_is_the_ports_warmup_schedule(monkeypatch, size):
     """The phase's written-out rate equals ``hvd.callbacks``' schedule at
@@ -584,3 +614,128 @@ def test_wire_digest_is_the_state_digest(tmp_path):
     with torch.no_grad():
         model.bias[0] += 1
     assert chip_smoke.wire_digest(wire) != chip_smoke.state_digest(model)
+
+
+# ---------------------------------------------------------------------------
+# The compiled-plane phase's checks, rehearsed at GPT_TINY
+# ---------------------------------------------------------------------------
+
+def _plane_report():
+    """One rank's faithful report of the ``compiled_plane`` phase at
+    GPT_TINY: a pin a parameter, each an all-reduce of its fp32 bytes."""
+    from horovod_tpu_torch.models import GPT, GPT_TINY
+    from horovod_tpu_torch.ops import hlo_inspect as hi
+
+    sizes = [p.numel() * 4 for p in GPT(GPT_TINY).parameters()]
+    raw = sum(sizes)
+    wire = sum(hi.ring_wire_bytes("all-reduce", n, 2) for n in sizes)
+    per_step = {"flash_fwd": GPT_TINY.num_layers,
+                "flash_bwd_dq": GPT_TINY.num_layers,
+                "flash_bwd_dkv": GPT_TINY.num_layers,
+                "quant_int8": 0, "quant_int4": 0, "dequant": 0}
+    compiled = {
+        "launches": [dict(per_step) for _ in range(chip_smoke.PLANE_STEPS)],
+        "inventories": [{"label": "step", "world": 2,
+                         "collectives": len(sizes),
+                         "kinds": {"all-reduce": len(sizes)},
+                         "raw_bytes": raw, "wire_bytes": wire, "cost": {}}],
+        "param_bytes": raw, "ring_wire_bytes": wire,
+        "gspmd_raw": raw, "gspmd_wire": wire,
+        "plane_counters": {"gspmd": 1}, "plane_tags": [1, 1, 1],
+        "losses": [6.3, 6.1, 5.9]}
+    return {"rank": 0, "compiled": compiled,
+            "eager": {"losses": [6.3001, 6.1, 5.9]},
+            "vs_eager": {"max_abs": 1e-3, "update_rel": 0.05}}
+
+
+def test_check_plane_accepts_a_faithful_run():
+    from horovod_tpu_torch.models import GPT_TINY
+
+    chip_smoke.check_plane(_plane_report(), GPT_TINY.num_layers)
+
+
+def _set(rep, path, value):
+    *keys, last = path
+    for k in keys:
+        rep = rep[k]
+    rep[last] = value
+
+
+@pytest.mark.parametrize("path,value,match", [
+    (("compiled", "launches", 1, "flash_bwd_dq"), 1, "launches"),
+    (("compiled", "launches", 0, "quant_int8"), 1, "launches"),
+    (("compiled", "inventories", 1), {}, "inventories"),
+    (("compiled", "inventories", 0, "kinds"), {"all-reduce": 30,
+                                               "all-gather": 1}, "kinds"),
+    (("compiled", "inventories", 0, "raw_bytes"), None, "inventory bytes"),
+    (("compiled", "gspmd_wire"), 0, "data_plane_stats"),
+    (("compiled", "plane_counters"), {"gspmd": 1, "demote_dtype": 1},
+     "plane counters"),
+    (("compiled", "plane_tags"), [1, 0], "plane tags"),
+    (("compiled", "plane_tags"), [], "plane tags"),
+    (("eager", "losses", 0), 6.5, "first losses"),
+    (("vs_eager", "update_rel"), 0.3, "eager replay"),
+    (("vs_eager", "update_rel"), 0.13, "eager replay")])
+def test_check_plane_refuses_a_wrong_run(path, value, match):
+    from horovod_tpu_torch.models import GPT_TINY
+
+    rep = _plane_report()
+    if path == ("compiled", "inventories", 1):
+        rep["compiled"]["inventories"].append(value)
+    elif value is None:  # the loss's token count reduced beside the grads
+        rep["compiled"]["inventories"][0]["raw_bytes"] += 4
+    else:
+        _set(rep, path, value)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_plane(rep, GPT_TINY.num_layers)
+
+
+def test_plane_compare_measures_the_update_difference():
+    init = {"a": torch.zeros(4), "b": torch.ones(2)}
+    eager = {"a": torch.tensor([1.0, -1.0, 1.0, -1.0]),
+             "b": torch.tensor([2.0, 2.0])}
+    got = chip_smoke.plane_compare(eager, eager, init)
+    assert got == {"max_abs": 0.0, "update_rel": 0.0}
+    compiled = {"a": eager["a"].clone(), "b": eager["b"].clone()}
+    compiled["a"][0] = 0.0  # one sign-like update lost
+    got = chip_smoke.plane_compare(compiled, eager, init)
+    assert got["max_abs"] == 1.0
+    assert got["update_rel"] == pytest.approx((1.0 / 6.0) ** 0.5)
+
+
+def test_plane_update_rtol_lies_between_the_sound_and_faulted_readings():
+    """``PLANE_UPDATE_RTOL`` passes the sound run's reading on the card and
+    refuses each planted fault's with room on both sides; the largest
+    element difference, under Adam's bound either way, limits nothing."""
+    readings = chip_smoke.PLANE_UPDATE_READINGS
+    faults = [v for k, v in readings.items() if k != "sound"]
+    assert set(readings) == {"sound", "dup_shard", "unreduced_embeddings"}
+    assert 2 * readings["sound"] < chip_smoke.PLANE_UPDATE_RTOL
+    assert chip_smoke.PLANE_UPDATE_RTOL < min(faults) / 2
+    from horovod_tpu_torch.models import GPT_TINY
+
+    rep = _plane_report()
+    rep["vs_eager"]["max_abs"] = 1.0
+    chip_smoke.check_plane(rep, GPT_TINY.num_layers)
+
+
+def test_planted_duplicate_shard_gives_rank1_rank0s_sequences(monkeypatch):
+    """``chip_plane_faults.py``'s ``dup_shard``: the compiled run of every
+    rank sees rank 1's half of each batch replaced by rank 0's, and the
+    other arguments pass through."""
+    import chip_plane_faults
+
+    seen = []
+    monkeypatch.setattr(chip_smoke, "plane_compiled",
+                        lambda *args: seen.append(args) or "report")
+    chip_plane_faults.plant("dup_shard")
+    tokens = chip_smoke.plane_tokens(0)
+    assert chip_smoke.plane_compiled("hvd", "fa", "qz", 0, 1,
+                                     tokens) == "report"
+    (args,) = seen
+    per = chip_smoke.PLANE_BATCH // 2
+    assert args[:5] == ("hvd", "fa", "qz", 0, 1)
+    assert torch.equal(args[5][:, per:], tokens[:, :per])
+    assert torch.equal(args[5][:, :per], tokens[:, :per])
+    with pytest.raises(ValueError, match="unknown fault"):
+        chip_plane_faults.plant("no_such_fault")

@@ -196,3 +196,45 @@ def test_mixed_devices_raise():
     q = torch.zeros((1, 8, 1, 8))
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q.to("meta"), q)
+
+
+@pytest.mark.parametrize("compiled", [False, True])
+@pytest.mark.parametrize("uses_lse", [False, True])
+def test_unused_lse_cotangent_reaches_k5_as_none(monkeypatch, uses_lse,
+                                                 compiled):
+    """The custom ops' backward gets no materialized zeros for an output
+    the loss does not use: on GPT's path (out only) K5 receives dlse None,
+    eagerly and in a graph ``torch.compile`` traces whole (``fullgraph``);
+    a loss that uses lse hands K5 its cotangent.  The gradients equal
+    dense attention's either way."""
+    seen = []
+    real = tfa._flash_bwd_dq_op
+
+    def spy(q, k, v, dout, out, lse, dlse, *rest):
+        seen.append(dlse is None)
+        return real(q, k, v, dout, out, lse, dlse, *rest)
+
+    monkeypatch.setattr(tfa, "_flash_bwd_dq_op", spy)
+
+    def loss_of(attn):
+        def loss(q, k, v):
+            out, lse = attn(q, k, v, causal=True)
+            total = (out * out).sum()
+            return total + lse.sum() if uses_lse else total
+        return loss
+
+    fn = loss_of(tfa.flash_attention_with_lse)
+    if compiled:
+        torch._dynamo.reset()
+        fn = torch.compile(fn, backend="aot_eager", fullgraph=True)
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _inputs((1, 32, 2, 16), 7))
+    grads = torch.autograd.grad(fn(q, k, v), (q, k, v))
+    qd, kd, vd = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(
+        loss_of(tfa.dense_attention_with_lse)(qd, kd, vd), (qd, kd, vd))
+    assert seen and set(seen) == {not uses_lse}
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, rtol=GRAD_TOL, atol=GRAD_TOL)
+    if compiled:
+        torch._dynamo.reset()

@@ -1,6 +1,7 @@
 """The port stands alone: ``horovod_tpu_torch`` (``parallel``, the runner
 with its autopilot and GPU discovery, ``elastic``, ``checkpoint``,
-``callbacks``, ``data``, ``cockpit``, ``spark`` and ``ray`` included) and
+``callbacks``, ``data``, ``cockpit``, ``spark``, ``ray`` and the compiler
+data plane's ``ops.gspmd_plane`` and ``ops.hlo_inspect`` included) and
 ``chip_smoke.py`` import neither jax nor the JAX package ``horovod_tpu``
 (nor need pyspark, ray, pyarrow or cloudpickle), ``hvd.init()`` starts the
 port's own native core and builds the global mesh, it runs on the card
@@ -50,6 +51,12 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     import torch
     total = hvd.allreduce(torch.ones(2), op=hvd.Sum).tolist()
     assert hvd.parallel.global_mesh().axis("hvd").size == 1
+    # The compiler data plane builds its mesh and resolves without jax.
+    from horovod_tpu_torch.ops import gspmd_plane, hlo_inspect
+    assert gspmd_plane.build_gspmd_mesh().size() == 1
+    assert gspmd_plane.resolve_plane("gspmd") == ("eager", None)
+    assert gspmd_plane.plane_counters() == {"demote_world1": 1}
+    assert hlo_inspect.ring_wire_bytes("all-reduce", 8, 2) == 8
     print(core.name, core._lib._name, total)
     hvd.shutdown()
     leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -93,7 +100,8 @@ def test_imports_with_jax_and_reference_blocked():
                    "data", "cockpit", "runner.autopilot",
                    "runner.gpu_discovery", "runner._pickling", "spark",
                    "spark.store", "spark.data", "spark.estimator", "ray",
-                   "examples.spark_estimator"):
+                   "examples.spark_estimator", "ops.gspmd_plane",
+                   "ops.hlo_inspect", "examples.uneven_data_join"):
         assert f"'horovod_tpu_torch.{module}'" in names
 
 
