@@ -158,16 +158,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``python -m horovod_tpu_torch.runner.launch --min-np 2 -np 2 -H
    localhost:2 --verbose python <worker>``, the worker written to a temp
    directory (``elastic_worker``): two ranks on ``cuda:0`` as in 6, each
-   ``GPT(GPT_SMALL)`` at full width from the seed, 4 x 1024 tokens a rank a
-   step from a seeded token set through ``ElasticSampler``,
+   a GPT at ``GPT_SMALL``'s full width and 4 of its 12 blocks
+   (``ELASTIC_LAYERS``) from the seed, 4 x 1024 tokens a rank a step from
+   a seeded token set through ``ElasticSampler``,
    ``DistributedOptimizer(AdamW(3e-4))`` in a ``TorchState`` under
-   ``@hvd.elastic.run``, ``state.commit()`` after each of 3 steps (each
-   commit replicates the 1.96 GB state to the ring successor, as the
-   defaults say).  Rank 1 SIGKILLs itself after the forward of step 2;
+   ``@hvd.elastic.run``, ``state.commit()`` after each of 2 steps (each
+   commit replicates the 1.28 GB state to the ring successor, as the
+   defaults say).  Rank 1 SIGKILLs itself after the forward of step 1;
    the driver must form exactly two generations of size 2, the survivor
    must restore the last commit, both ranks resume by migration (neither
    cold nor fallback), the respawned rank adopting the committed record's
-   digest; K4-K6 launch 12 a step on each rank in both generations, the
+   digest; K4-K6 launch 4 a step on each rank in both generations, the
    losses stay finite, the final parameters are bitwise equal across
    ranks and within ``ELASTIC_PARAM_TOL`` of an uninterrupted run of the
    same worker, and a ``ShardedCheckpointer`` round trip of the
@@ -248,9 +249,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    must be bitwise equal across ranks.  Prints the
    compile and step seconds, the compile's seconds by stage, peak device
    memory a rank and the profiled last step's device time by category.
-   The two ranks start before the elastic phase (13) and run beside its
-   jobs: their compile is host work of minutes.  ``chip_plane_faults.py``
-   runs the phase's ranks alone and with planted faults.
+   The two ranks start before the world-2 phases (6 on) and run beside
+   them and the elastic phase (13): their compile is host work of
+   minutes.  ``chip_plane_faults.py``
+   runs the phase's ranks alone and with planted faults.  After its steps
+   rank 0 saves the compiled step's graph code
+   (``hlo_inspect.write_graphs``) and its ``hvd.metrics()`` dump, and
+   ``python -m horovod_tpu_torch.tools.hlo_report <graphs> --metrics``
+   must exit 0 with totals equal to the phase's inventory and to
+   ``data_plane_stats()``'s gspmd bytes.
+17. Eager example: ``horovod_tpu_torch.examples.eager_device_plane`` at
+   world 1 on the card (NCCL): the reference's MLP, 10 SGD steps whose
+   gradients the hooks send through the device plane; its stats must
+   show the plane served them (allreduce + identity > 0, no host
+   fallback) and the parameters stay on the card, finite.
+18. Matrix: ``python -m horovod_tpu_torch.tools.test_matrix --quick
+   --card --device cuda``, the quick rows whose tensors reach the card:
+   world 1 on NCCL, a world-3 row over gloo, the qdev rows (int8 and
+   int4 on the bidi schedule, 4 ranks, the device plane's quantized ring
+   on K1-K3), the dplane row (``HOROVOD_DATA_PLANE=gspmd``, a step
+   compiled by Inductor) and the hloinspect row.  Every row must pass;
+   each qdev rank's K1-K3 launches in its one quantized allreduce must
+   be ``expected_launches`` at world 4.  Prints one line a row with its
+   seconds.  The rows run beside the elastic phase (13), whose lines
+   print first.
 
 Each phase prints its seconds.  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -3100,10 +3122,13 @@ def parallel_phase(seed, gpu_operations) -> dict:
 
 # The elastic phase: GPT-2 small at full width, two ranks on cuda:0 under
 # the port's launcher and elastic driver, rank 1 killed once mid-step.
-# Steps of the job, over both generations: 3 since the compiled-plane
-# phase took the room of a commit and a step of each run (4 before).
-ELASTIC_STEPS = 3
-ELASTIC_KILL_STEP = 2      # rank 1 dies after this step's forward
+# Steps of the job, over both generations, and its blocks are cut to keep
+# the script inside its time limit: 4 of GPT-2 small's 12 blocks cut each
+# commit's replication to 106,406,400 parameters (163,109,376 at 12) and
+# their AdamW moments; the embeddings and the head keep their full size.
+ELASTIC_STEPS = 2
+ELASTIC_KILL_STEP = 1      # rank 1 dies after this step's forward
+ELASTIC_LAYERS = 4
 ELASTIC_BATCH = 4          # sequences a rank a step
 ELASTIC_SEQ = 1024         # tokens a sequence
 ELASTIC_SEQS = 64          # the seeded synthetic token set, in sequences
@@ -3178,10 +3203,11 @@ def checkpoint_roundtrip(hvd, model, opt, step, outdir) -> dict:
 
 def elastic_worker(spec) -> int:
     """One worker of the elastic job (launched by the port's elastic
-    driver): GPT at ``GPT_SMALL`` on cuda:0, ``DistributedOptimizer(AdamW)``,
-    an ``ElasticSampler`` over the seeded token set, ``state.commit()``
-    after every step.  Writes one JSON line per event to
-    ``<outdir>/events.<pid>.jsonl``."""
+    driver): GPT at ``GPT_SMALL``'s width and ``ELASTIC_LAYERS`` blocks on
+    cuda:0, ``DistributedOptimizer(AdamW)``, an ``ElasticSampler`` over
+    the seeded token set, ``state.commit()`` after every step.  Writes one
+    JSON line per event to ``<outdir>/events.<pid>.jsonl``."""
+    import dataclasses
     import signal
 
     import horovod_tpu_torch as hvd
@@ -3195,7 +3221,8 @@ def elastic_worker(spec) -> int:
     hvd.init(device="cuda:0")
     dev = hvd.device()
     torch.manual_seed(spec["seed"])
-    model = GPT(GPT_SMALL).to(dev)
+    model = GPT(dataclasses.replace(GPT_SMALL, num_layers=ELASTIC_LAYERS)) \
+        .to(dev)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=ELASTIC_LR),
         named_parameters=model.named_parameters())
@@ -3419,9 +3446,7 @@ def elastic_phase(seed, gpu_operations) -> dict:
     import shutil
     import tempfile
 
-    from horovod_tpu_torch.models import GPT_SMALL
-
-    layers = GPT_SMALL.num_layers
+    layers = ELASTIC_LAYERS
     repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="hvd_elastic_")
     try:
@@ -4940,10 +4965,52 @@ def plane_compiled(hvd, fa, qz, seed, rank, tokens) -> tuple:
                                for inv in invs for op in inv.ops),
         "compile_seconds_by_stage": compile_stages(),
         "breakdown": breakdown}
+    if rank == 0:
+        report["hlo_report"] = plane_hlo_report(hvd, hi)
     params = plane_params(model)
     del model, opt, cstep
     torch._dynamo.reset()
     return report, params
+
+
+def plane_hlo_report(hvd, hi) -> dict:
+    """The compiled step's graph code and ``hvd.metrics()`` saved to a
+    directory, and the port's ``hlo_report`` over them with ``--metrics``:
+    its exit code and totals."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hvd_graphs_") as td:
+        t0 = time.perf_counter()
+        paths = hi.write_graphs(td, "gpt_small_gspmd_step")
+        metrics = os.path.join(td, "metrics.json")
+        with open(metrics, "w") as f:
+            json.dump(hvd.metrics(), f)
+        written = time.perf_counter() - t0
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.tools.hlo_report",
+             *paths, "--metrics", metrics, "--json"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        sizes = sum(os.path.getsize(p) for p in paths)
+    out = {"rc": proc.returncode, "files": len(paths), "file_bytes": sizes,
+           "write_s": round(written, 3),
+           "report_s": round(time.perf_counter() - t0 - written, 3)}
+    try:
+        res = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        out["error"] = (proc.stdout + proc.stderr)[-3000:]
+        return out
+    kinds = {}
+    for trace in res.get("traces", []):
+        for kind, n in trace["kinds"].items():
+            kinds[kind] = kinds.get(kind, 0) + n
+    out.update(metrics_match=res.get("metrics_match"), kinds=kinds,
+               collectives=sum(t["collectives"] for t in res["traces"]),
+               raw_bytes=sum(t["raw_bytes"] for t in res["traces"]),
+               wire_bytes=sum(t["wire_bytes"] for t in res["traces"]))
+    if proc.returncode:
+        out["error"] = proc.stderr[-3000:]
+    return out
 
 
 def compile_stages() -> dict:
@@ -5063,6 +5130,23 @@ def check_plane(rep, layers: int) -> None:
                              f"limit {PLANE_UPDATE_RTOL}")
 
 
+def check_plane_report(rep) -> None:
+    """The port's ``hlo_report`` over rank 0's saved graphs: exit 0, the
+    ``--metrics`` cross-check matched, and its totals the phase's
+    inventory and ``data_plane_stats()``'s gspmd bytes."""
+    c = rep["compiled"]
+    inv, h = c["inventories"][0], c["hlo_report"]
+    want = {"rc": 0, "metrics_match": True,
+            "collectives": inv["collectives"], "kinds": inv["kinds"],
+            "raw_bytes": inv["raw_bytes"], "wire_bytes": inv["wire_bytes"]}
+    if {k: h.get(k) for k in want} != want or \
+            (h["raw_bytes"], h["wire_bytes"]) != (c["gspmd_raw"],
+                                                  c["gspmd_wire"]):
+        raise AssertionError(f"hlo_report over the saved graphs {h}, "
+                             f"expected {want} and data_plane_stats "
+                             f"{c['gspmd_raw']}, {c['gspmd_wire']}")
+
+
 def plane_world1(hvd, seed, steps=2, batch=8, seq=1024) -> dict:
     """World 1 over NCCL: ``plane="gspmd"`` counts ``demote_world1`` and
     trains bitwise as ``plane="eager"`` does."""
@@ -5110,7 +5194,7 @@ class CompiledPlane:
     by the constructor; :meth:`result` waits for them and makes every
     check of :func:`check_plane`, and both ranks' final parameters must be
     bitwise equal.  Their compile is mostly host work, so ``main`` runs
-    the elastic phase meanwhile."""
+    the world-2, elastic and matrix phases meanwhile."""
 
     def __init__(self, hvd, seed, gpu_operations):
         import tempfile
@@ -5138,6 +5222,7 @@ class CompiledPlane:
             raise AssertionError(f"compiled-plane exit codes {codes}")
         for rep in reports.values():
             check_plane(rep, GPT_SMALL.num_layers)
+        check_plane_report(reports[0])
         if reports[0]["params_digest"] != reports[1]["params_digest"]:
             raise AssertionError("the ranks' compiled parameters differ")
         return ({"world1": self.world1, "ranks": [reports[0], reports[1]]},
@@ -5178,6 +5263,117 @@ def print_plane(plane, secs, gpu_operations, card, beside) -> None:
                                   "are not a speed result",
                           "card": card, "seconds": secs, **rep}),
               flush=True)
+
+
+def eager_example_phase() -> dict:
+    """``examples/eager_device_plane`` at world 1 on the card through its
+    entry point: the device plane served every gradient exchange."""
+    from horovod_tpu_torch.examples import eager_device_plane as ex
+
+    out = ex.main([])
+    stats, params = out["device_plane"], list(out["model"].parameters())
+    if stats["allreduce"] + stats["identity"] <= 0 or \
+            stats["host_fallback"]:
+        raise AssertionError(f"eager example device plane {stats}")
+    if not all(p.is_cuda and bool(torch.isfinite(p).all())
+               for p in params):
+        raise AssertionError("eager example parameters off the card or "
+                             "not finite")
+    return {"steps": ex.STEPS, "device_plane": stats,
+            "params_device": str(params[0].device)}
+
+
+# The kill callables of the phases ``main`` left running in the background
+# (the compiled plane's ranks, the matrix's rows), called when it returns
+# or raises.
+_BACKGROUND: list = []
+
+# The matrix phase's rows run this many at once; each rank is a process
+# that reaches the card in about 8 s.
+MATRIX_JOBS = 4
+MATRIX_TIMEOUT_S = 300
+
+
+def matrix_expected(axes: dict, rank: int) -> dict:
+    """K1-K3 launches of a qdev row's one quantized allreduce on
+    ``rank``."""
+    from horovod_tpu_torch.ops.collectives import resolve_device_schedule
+
+    codec, _, sched = axes["qdev"].partition(":")
+    return expected_launches(
+        "allreduce", codec, resolve_device_schedule(axes["np"],
+                                                    sched or "auto"),
+        rank, world=axes["np"])
+
+
+class MatrixRun:
+    """The card rows of the port's configuration matrix, through its
+    command line, started by the constructor; :meth:`result` waits for
+    them: every row must pass and the qdev rows' K1-K3 launches must be
+    the ring's.  The rows are separate processes with their own counters,
+    so ``main`` runs the elastic phase meanwhile."""
+
+    def __init__(self):
+        import tempfile
+
+        self.t0 = time.perf_counter()
+        self.tmp = tempfile.mkdtemp(prefix="hvd_matrix_")
+        self.path = os.path.join(self.tmp, "matrix.json")
+        self.log = open(os.path.join(self.tmp, "matrix.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.tools.test_matrix",
+             "--quick", "--card", "--device", "cuda", "--jobs",
+             str(MATRIX_JOBS), "--timeout", str(MATRIX_TIMEOUT_S),
+             "--report", self.path],
+            stdout=self.log, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+    def result(self) -> tuple:
+        import shutil
+
+        try:
+            try:
+                rc = self.proc.wait(MATRIX_TIMEOUT_S + 120)
+            except subprocess.TimeoutExpired:
+                self.kill()
+                raise AssertionError("test_matrix did not end in time")
+            self.log.seek(0)
+            out = self.log.read()
+            if rc != 0 or not os.path.exists(self.path):
+                raise AssertionError(f"test_matrix exit {rc}:\n{out[-6000:]}")
+            with open(self.path) as f:
+                rep = json.load(f)
+        finally:
+            self.log.close()
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        rows, launches = [], {}
+        for row in rep["rows"]:
+            axes = row["axes"]
+            entry = {"row": row["row"], "ok": row["ok"],
+                     "seconds": round(row["seconds"], 3), "np": axes["np"],
+                     "device_plane": [r["device_plane"]
+                                      for r in row["ranks"]]}
+            if axes["qdev"] != "off":
+                got = [r["qdev_launches"] for r in row["ranks"]]
+                want = [matrix_expected(axes, r) for r in range(axes["np"])]
+                if got != want:
+                    raise AssertionError(f"matrix row {row['row']}: K1-K3 "
+                                         f"launches {got}, expected {want}")
+                entry.update(launches=got,
+                             bytes=[r["qdev_bytes"] for r in row["ranks"]],
+                             err_and_bound=[r["qdev_err"]
+                                            for r in row["ranks"]])
+                launches[axes["qdev"]] = got
+            rows.append(entry)
+        if len(rows) != 6 or not all(r["ok"] for r in rows):
+            raise AssertionError(f"matrix rows {rows}")
+        return ({"rows": rows, "launches": launches},
+                round(time.perf_counter() - self.t0, 3))
 
 
 def timed_phase(fn, *args):
@@ -5305,6 +5501,10 @@ def main() -> int:
     print(json.dumps({"phase": "spine", "part": "world1_nccl",
                       "model": "GPT_SMALL", "batch": 8, "seq": 1024,
                       "card": card, "seconds": secs, **spine1}), flush=True)
+    eager, secs = timed_phase(eager_example_phase)
+    print(json.dumps({"phase": "eager_example", "model": "MLP",
+                      "world": 1, "card": card, "seconds": secs, **eager}),
+          flush=True)
 
     torch.cuda.empty_cache()
     cnn, secs = timed_phase(cnn_phase, hvd, fa, qz, args.seed)
@@ -5318,36 +5518,6 @@ def main() -> int:
                       "optimizer": "AdamW(1e-4), Compression.fp16",
                       "card": card, "seconds": secs, **bert}), flush=True)
 
-    torch.cuda.empty_cache()
-    nccl, _ = spawn_pair(nccl_pair_rank, (), 300)
-    # NCCL whenever it takes two ranks on one card; gloo on the card only
-    # when both ranks were refused.
-    gpu_operations = ("GLOO" if not any(a["accepted"] for a in nccl.values())
-                      else "NCCL")
-    print(json.dumps({"phase": "nccl_two_ranks_one_card",
-                      "nccl": ".".join(map(str, torch.cuda.nccl.version())),
-                      "answers": [nccl[r] for r in sorted(nccl)],
-                      "world2_gpu_operations": gpu_operations}), flush=True)
-    (rank0, rank1), secs = timed_phase(world2_phase, args.seed,
-                                       gpu_operations)
-    for rep in (rank0, rank1):
-        print(json.dumps({"phase": "world2", "model": "GPT_SMALL",
-                          "batch_per_rank": 4, "seq": 1024,
-                          "note": "two ranks share one card: step times "
-                                  "are not a speed result",
-                          "card": card, "seconds": secs, **rep}), flush=True)
-    torch.cuda.empty_cache()
-    (spine0, spine1_rank, replayed), secs = timed_phase(
-        spine_world2, args.seed, gpu_operations)
-    for rep in (spine0, spine1_rank):
-        print(json.dumps({"phase": "spine", "part": "world2",
-                          "model": "GPT_SMALL", "batch_per_rank": 4,
-                          "seq": 1024, "gpu_operations": gpu_operations,
-                          "device_codec": "int8",
-                          "replayed_bucket_elems": replayed,
-                          "note": "two ranks share one card: step times "
-                                  "are not a speed result",
-                          "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
     import shutil
     import tempfile
@@ -5363,6 +5533,42 @@ def main() -> int:
                       "card": card, "seconds": secs, **observed}),
           flush=True)
     torch.cuda.empty_cache()
+    nccl, _ = spawn_pair(nccl_pair_rank, (), 300)
+    # NCCL whenever it takes two ranks on one card; gloo on the card only
+    # when both ranks were refused.
+    gpu_operations = ("GLOO" if not any(a["accepted"] for a in nccl.values())
+                      else "NCCL")
+    print(json.dumps({"phase": "nccl_two_ranks_one_card",
+                      "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+                      "answers": [nccl[r] for r in sorted(nccl)],
+                      "world2_gpu_operations": gpu_operations}), flush=True)
+    # The compiled-plane ranks compile (host work, minutes) while the
+    # world-2 phases and the elastic jobs run, none of them a speed result.
+    compiled = CompiledPlane(hvd, args.seed, gpu_operations)
+    _BACKGROUND.append(compiled.pair.kill)
+    (rank0, rank1), secs = timed_phase(world2_phase, args.seed,
+                                       gpu_operations)
+    for rep in (rank0, rank1):
+        print(json.dumps({"phase": "world2", "model": "GPT_SMALL",
+                          "batch_per_rank": 4, "seq": 1024,
+                          "note": "two ranks share one card: step times "
+                                  "are not a speed result",
+                          "beside": "compiled_plane",
+                          "card": card, "seconds": secs, **rep}), flush=True)
+    torch.cuda.empty_cache()
+    (spine0, spine1_rank, replayed), secs = timed_phase(
+        spine_world2, args.seed, gpu_operations)
+    for rep in (spine0, spine1_rank):
+        print(json.dumps({"phase": "spine", "part": "world2",
+                          "model": "GPT_SMALL", "batch_per_rank": 4,
+                          "seq": 1024, "gpu_operations": gpu_operations,
+                          "device_codec": "int8",
+                          "replayed_bucket_elems": replayed,
+                          "note": "two ranks share one card: step times "
+                                  "are not a speed result",
+                          "beside": "compiled_plane",
+                          "card": card, "seconds": secs, **rep}), flush=True)
+    torch.cuda.empty_cache()
     (extras0, extras1), secs = timed_phase(spine_extras_phase, args.seed,
                                            gpu_operations)
     for rep in (extras0, extras1):
@@ -5374,6 +5580,7 @@ def main() -> int:
                           "gpu_operations": gpu_operations,
                           "note": "two ranks share one card: times are not "
                                   "a speed result",
+                          "beside": "compiled_plane",
                           "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
     cnn2, secs = timed_phase(cnn_world2_phase, args.seed, gpu_operations)
@@ -5382,7 +5589,7 @@ def main() -> int:
                       "gpu_operations": gpu_operations,
                       "note": "two ranks share one card over gloo staged "
                               "through the host: step times are not a "
-                              "speed result",
+                              "speed result", "beside": "compiled_plane",
                       "card": card, "seconds": secs, **cnn2}), flush=True)
     torch.cuda.empty_cache()
     par, secs = timed_phase(parallel_phase, args.seed, gpu_operations)
@@ -5398,31 +5605,31 @@ def main() -> int:
                           "note": "two ranks share one card over gloo "
                                   "staged through the host: times are not "
                                   "a speed result",
+                          "beside": "compiled_plane",
                           "card": card, "seconds": secs, **rep}),
               flush=True)
     print(json.dumps({"phase": "parallel", "part": "replay",
                       "card": card, **par["replay"]}), flush=True)
     torch.cuda.empty_cache()
-    # The compiled-plane ranks compile (host work, minutes) while the
-    # elastic jobs run; both finish before the fleet phase's timing.
-    compiled = CompiledPlane(hvd, args.seed, gpu_operations)
-    try:
-        ela, secs = timed_phase(elastic_phase, args.seed, gpu_operations)
-    except BaseException:
-        compiled.pair.kill()
-        raise
+    # The matrix's rows run beside the elastic jobs; they count their
+    # launches in their own processes.
+    matrix_run = MatrixRun()
+    _BACKGROUND.append(matrix_run.kill)
+    ela, secs = timed_phase(elastic_phase, args.seed, gpu_operations)
     for label, run in ela["runs"].items():
         print(json.dumps({"phase": "elastic", "part": label,
                           "model": "GPT_SMALL", "world": 2,
                           "batch_per_rank": ELASTIC_BATCH,
                           "seq": ELASTIC_SEQ, "steps": ELASTIC_STEPS,
+                          "layers": ELASTIC_LAYERS,
                           "kill_step": ELASTIC_KILL_STEP if label == "killed"
                           else None,
                           "gpu_operations": gpu_operations,
                           "note": "two ranks share one card over gloo "
                                   "staged through the host, beside the "
-                                  "compiled-plane phase's ranks: times are "
-                                  "not a speed result",
+                                  "compiled-plane phase's ranks and the "
+                                  "matrix's rows: times are not a speed "
+                                  "result",
                           "card": card, **run}), flush=True)
     print(json.dumps({"phase": "elastic", "part": "compare", "card": card,
                       "seconds": secs,
@@ -5432,9 +5639,16 @@ def main() -> int:
                       "vs_uninterrupted_bitwise":
                           ela["vs_uninterrupted_bitwise"]}),
           flush=True)
+    matrix, secs = matrix_run.result()
+    for row in matrix["rows"]:
+        print(json.dumps({"phase": "matrix", "card": card, **row}),
+              flush=True)
+    print(json.dumps({"phase": "matrix", "part": "total", "seconds": secs,
+                      "jobs": MATRIX_JOBS, "rows": len(matrix["rows"]),
+                      "beside": "elastic"}), flush=True)
     plane, plane_secs = compiled.result()
     print_plane(plane, plane_secs, gpu_operations, card,
-                ", beside the elastic phase's jobs")
+                ", beside the world-2, elastic and matrix phases' ranks")
     torch.cuda.empty_cache()
     fleet, secs = timed_phase(fleet_phase, args.seed, gpu_operations)
     print(json.dumps({"phase": "fleet", "model": "GPT_SMALL",
@@ -5524,7 +5738,10 @@ def main() -> int:
             "launches_fleet": fleet["launches"][name],
             "launches_integrations": integration_launches(integ, name),
             "launches_compiled_plane_per_step": plane_launches(plane,
-                                                               name)})
+                                                               name),
+            "launches_matrix": {row: [rank[name] for rank in ranks]
+                                for row, ranks in
+                                matrix["launches"].items()}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5533,4 +5750,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for kill in _BACKGROUND:
+            kill()

@@ -76,9 +76,15 @@ def _select_device(device, local_rank: int) -> torch.device:
     return dev
 
 
-def init(device: Union[str, torch.device, None] = None,
-         process_sets: Optional[Sequence] = None) -> None:
+def init(comm=None, process_sets: Optional[Sequence] = None,
+         config: Optional[Config] = None, build_mesh: bool = True,
+         device: Union[str, torch.device, None] = None) -> None:
     """Initialize Horovod on this rank.
+
+    The reference's arguments come first, in its order: ``comm`` (an MPI
+    communicator there) must be None or a list of ranks, ``config``
+    replaces the environment's ``Config``, and ``build_mesh=False`` skips
+    the global mesh (``hvd.parallel.global_mesh()`` is then None).
 
     Rank, size and local rank come from ``HOROVOD_RANK``/``HOROVOD_SIZE``/
     ``HOROVOD_LOCAL_RANK`` (default: a world of one).  The device defaults
@@ -107,11 +113,14 @@ def init(device: Union[str, torch.device, None] = None,
         _first_device = (device,)
     elif device is None:
         device = _first_device[0]
-    if os.environ.get("HOROVOD_ELASTIC") == "1":
+    if comm is not None and not isinstance(comm, (list, tuple)):
+        raise ValueError("comm must be None or a list of ranks; MPI "
+                         "communicators do not exist in the port")
+    if config is None and os.environ.get("HOROVOD_ELASTIC") == "1":
         from .elastic import client as _elastic_client
 
         _elastic_client.ensure_assignment()
-    cfg = Config.from_env()
+    cfg = config or Config.from_env()
     dev = _select_device(device, cfg.local_rank)
     if dist.is_initialized():
         raise RuntimeError(
@@ -142,7 +151,8 @@ def init(device: Union[str, torch.device, None] = None,
         caller_group = dist.new_group(list(range(cfg.size)))
         _runtime = _Runtime(cfg=cfg, device=dev, backend=backend,
                             caller_group=caller_group)
-        mesh.build_global_mesh()
+        if build_mesh:
+            mesh.build_global_mesh()
         HorovodContext.start(cfg, dev, backend,
                              core_port=_core_port(cfg, dev, backend))
         for ps in process_sets or ():

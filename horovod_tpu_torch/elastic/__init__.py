@@ -15,6 +15,9 @@ from __future__ import annotations
 import functools
 
 from ..exceptions import HorovodInternalError, HostsUpdatedInterrupt
+# The reference's elastic namespace re-exports the broadcast helpers.
+from ..functions import (broadcast_object,  # noqa: F401
+                         broadcast_optimizer_state, broadcast_parameters)
 from ..utils.logging import get_logger
 from .state import (ElasticSampler, ObjectState, State,  # noqa: F401
                     TorchState)

@@ -141,12 +141,13 @@ def allreduce_async_(tensor, average: Optional[bool] = None,
 
 
 def allreduce(tensor, average: Optional[bool] = None,
-              name: Optional[str] = None, compression=Compression.none,
+              name: Optional[str] = None, compression=None,
               op: Optional[ReduceOp] = None,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               process_set: Optional[ProcessSet] = None):
     """Average (default) or otherwise reduce ``tensor`` across the set's
-    ranks, returning a new tensor."""
+    ranks, returning a new tensor (``compression`` None: none)."""
+    compression = compression or Compression.none
     compressed, ctx = compression.compress(tensor)
     h = allreduce_async(compressed, average=average, name=name, op=op,
                         prescale_factor=prescale_factor,

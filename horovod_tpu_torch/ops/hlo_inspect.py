@@ -26,6 +26,12 @@ size.  The inventory feeds the native core's gspmd byte counters
 (``hvd.metrics()``, ``data_plane_stats()``, a type-16 flight event)
 through :func:`set_native_sink`, and the step-trace plane tag.
 
+Offline, :func:`write_graphs` saves the recorded graphs' code
+(``GraphModule.print_readable``), the counterpart of XLA's
+``--xla_dump_to``, and :func:`inventory_from_text` inventories such a file
+by the same rules as the walk, so ``horovod_tpu_torch.tools.hlo_report``
+reads a compiled step after its run has ended.
+
 ``HOROVOD_HLO_INSPECT=0`` makes :func:`instrument` return its argument
 unchanged.  Enabled, a step whose signature was seen costs one dict
 lookup beside the compiled call.  Inspection is gated on the plane the
@@ -38,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import operator
+import os
+import re
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -176,18 +184,47 @@ def _waited(node) -> bool:
     return False
 
 
-def _group_size(node, default: int) -> int:
-    """The size of the process group a functional collective names (its
-    last string argument), ``default`` if it names none that resolves."""
-    from torch.distributed import distributed_c10d as c10d
-
+def _group_name(node) -> Optional[str]:
+    """The process group a functional collective names: its last string
+    argument (None when it has none)."""
     for arg in reversed(list(node.args)):
         if isinstance(arg, str):
-            try:
-                return c10d._resolve_process_group(arg).size()
-            except Exception:
-                break
-    return max(1, int(default))
+            return arg
+    return None
+
+
+def _resolved_size(name: Optional[str]) -> int:
+    """The size of the live process group ``name`` (0 when it does not
+    resolve)."""
+    from torch.distributed import distributed_c10d as c10d
+
+    if name is None:
+        return 0
+    try:
+        return int(c10d._resolve_process_group(name).size())
+    except Exception:
+        return 0
+
+
+def _group_size(node, default: int) -> int:
+    """The size of the process group a functional collective names,
+    ``default`` if it names none that resolves."""
+    return _resolved_size(_group_name(node)) or max(1, int(default))
+
+
+def _group_sizes(graphs) -> Dict[str, int]:
+    """The size of each process group the graphs' functional collectives
+    name, read while the groups are up."""
+    sizes: Dict[str, int] = {}
+    for g in graphs:
+        for node in getattr(g, "graph", g).nodes:
+            if _functional_kind(node) is None:
+                continue
+            name = _group_name(node)
+            size = _resolved_size(name)
+            if size:
+                sizes[name] = size
+    return sizes
 
 
 def _payload(val) -> Tuple[str, int, int, str]:
@@ -242,6 +279,169 @@ def inventory_from_graph(graphs, world: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# Offline: the graphs' printed code
+# ---------------------------------------------------------------------------
+
+# One assignment of the printed graph code: ``name[: "annotation"] = rhs``.
+_ASSIGN_RE = re.compile(
+    r'^\s*(?P<name>[A-Za-z_]\w*)(?:\s*:\s*"(?P<ann>[^"]*)")?\s*=\s*'
+    r'(?P<rhs>.*)$')
+_FUNCTIONAL_CALL_RE = re.compile(
+    r'^torch\.ops\._c10d_functional\.(?P<op>\w+)\.\w+\((?P<args>.*)\)$')
+_GETITEM_RE = re.compile(r'^(?P<src>[A-Za-z_]\w*)\[(?P<idx>\d+)\]$')
+_ANNOTATION_RE = re.compile(r'^(?P<dtype>\w+)\[(?P<dims>[^\]]*)\]$')
+_HEADER_RE = re.compile(r'^#\s*hlo_inspect:.*\bworld=(\d+)', re.M)
+_GROUPS_RE = re.compile(r'^#\s*hlo_inspect:.*\bgroups=(\{.*\})\s*$', re.M)
+_STRING_RE = re.compile(r'^([\'"])(?P<s>.*)\1$')
+# The position of the group-size argument among a functional collective's
+# arguments, for those that take one.
+_SIZE_ARG = {"all_gather_into_tensor": 1,
+             "all_gather_into_tensor_coalesced": 1,
+             "reduce_scatter_tensor": 2,
+             "reduce_scatter_tensor_coalesced": 2}
+
+
+def _fx_dtypes() -> Dict[str, torch.dtype]:
+    from torch.fx.graph import dtype_abbrs
+
+    return {abbr: dt for dt, abbr in dtype_abbrs.items()}
+
+
+def _split_args(args: str) -> List[str]:
+    """Top-level comma-separated arguments of a printed call."""
+    out, depth, cur = [], 0, []
+    for ch in args:
+        if ch in "([":
+            depth += 1
+        elif ch in ")]":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+    if "".join(cur).strip():
+        out.append("".join(cur).strip())
+    return out
+
+
+def _annotation_payload(ann: str, fx_dtypes) -> Tuple[str, int, int, str]:
+    """(dtype, elements, bytes, shape) of one printed annotation such as
+    ``f32[4, 3]``."""
+    m = _ANNOTATION_RE.match(ann.strip())
+    if m is None or m.group("dtype") not in fx_dtypes:
+        raise ValueError(f"unreadable tensor annotation {ann!r}")
+    dt = fx_dtypes[m.group("dtype")]
+    dims = [d.strip() for d in m.group("dims").split(",") if d.strip()]
+    if not all(d.isdigit() for d in dims):
+        raise ValueError(f"symbolic shape {ann!r}: the inventory needs "
+                         "static shapes")
+    n = 1
+    for d in dims:
+        n *= int(d)
+    name = _DTYPE_NAMES.get(dt, str(dt))
+    return name, n, n * dt.itemsize, f"{name}[{','.join(dims)}]"
+
+
+def module_partitions(text: str) -> int:
+    """The world a :func:`write_graphs` file states in its header (0 when
+    unstated), the counterpart of an HLO module's ``num_partitions``."""
+    m = _HEADER_RE.search(text)
+    return int(m.group(1)) if m else 0
+
+
+def _header_groups(text: str) -> Dict[str, int]:
+    """The group sizes a :func:`write_graphs` header states (empty when
+    unstated)."""
+    import json
+
+    m = _GROUPS_RE.search(text)
+    return ({str(k): int(v) for k, v in json.loads(m.group(1)).items()}
+            if m else {})
+
+
+def inventory_from_text(text: str, world: int = 0,
+                        label: str = "") -> TraceInventory:
+    """Inventory every functional collective in printed graph code (the
+    text of ``GraphModule.print_readable(print_output=False)``), by the
+    rules of :func:`inventory_from_graph`.
+
+    Kind, dtype, shape and bytes come from each call's annotation (a
+    ``_coalesced`` call's from the annotations of its ``getitem``
+    outputs); a call that a ``wait_tensor`` completes, directly or
+    through a ``getitem``, is asynchronous.  The group size is the size
+    the :func:`write_graphs` header states for the group the call names
+    (its last string argument), else the call's own size argument where
+    it has one (all-gather, reduce-scatter) or its split list's length
+    (all-to-all), else ``world``.  ``world`` defaults to the header's,
+    then to the first collective's group size (1 when there is none)."""
+    fx_dtypes = _fx_dtypes()
+    groups = _header_groups(text)
+    if world <= 0:
+        world = module_partitions(text)
+    anns: Dict[str, str] = {}
+    items: Dict[str, List[Tuple[int, str]]] = {}
+    waited: set = set()
+    calls: List[Tuple[str, str, List[str]]] = []
+    for line in text.splitlines():
+        m = _ASSIGN_RE.match(line.split(";")[0].rstrip())
+        if m is None:
+            continue
+        name, rhs = m.group("name"), m.group("rhs").strip()
+        if m.group("ann") is not None:
+            anns[name] = m.group("ann")
+        g = _GETITEM_RE.match(rhs)
+        if g is not None:
+            items.setdefault(g.group("src"), []).append(
+                (int(g.group("idx")), name))
+            continue
+        c = _FUNCTIONAL_CALL_RE.match(rhs)
+        if c is None:
+            continue
+        args = _split_args(c.group("args"))
+        if c.group("op") == "wait_tensor":
+            waited.update(args[:1])
+        elif c.group("op") in _FUNCTIONAL_KINDS:
+            calls.append((name, c.group("op"), args))
+    ops: List[CollectiveOp] = []
+    for name, op, args in calls:
+        kind = _FUNCTIONAL_KINDS[op]
+        outs = ([n for _, n in sorted(items.get(name, []))]
+                if op.endswith("_coalesced") else [name])
+        vals = [_annotation_payload(anns[o], fx_dtypes)
+                for o in outs if o in anns]
+        if not vals:
+            continue
+        elements = sum(v[1] for v in vals)
+        nbytes = sum(v[2] for v in vals)
+        if elements == 0 and nbytes == 0:
+            continue
+        shape = (vals[0][3] if len(vals) == 1
+                 else "(" + ", ".join(v[3] for v in vals) + ")")
+        strings = [m.group("s") for m in map(_STRING_RE.match, args) if m]
+        size = groups.get(strings[-1], 0) if strings else 0
+        if not size and op in _SIZE_ARG and len(args) > _SIZE_ARG[op] \
+                and args[_SIZE_ARG[op]].isdigit():
+            size = int(args[_SIZE_ARG[op]])
+        elif not size and kind == "all-to-all" and len(args) > 1 and \
+                args[1].startswith("["):
+            size = len(_split_args(args[1][1:-1]))
+        size = size or max(1, world)
+        raw = nbytes * size if kind == "reduce-scatter" else nbytes
+        ops.append(CollectiveOp(
+            kind=kind, name=name, dtype=vals[0][0], shape=shape,
+            elements=elements, raw_bytes=raw, group_size=size,
+            wire_bytes=ring_wire_bytes(kind, raw, size),
+            asynchronous=any(o in waited for o in outs)))
+    if world <= 0:
+        world = ops[0].group_size if ops else 1
+    return TraceInventory(
+        label=label, world=world, ops=ops,
+        raw_bytes=sum(op.raw_bytes for op in ops),
+        wire_bytes=sum(op.wire_bytes for op in ops))
+
+
+# ---------------------------------------------------------------------------
 # Counters and the native sink
 # ---------------------------------------------------------------------------
 
@@ -252,6 +452,9 @@ _OPS = 0
 _TRACES = 0
 _INVENTORIES: List[TraceInventory] = []
 _MAX_INVENTORIES = 32
+# (label, world, graphs, group sizes) of each first call per signature,
+# oldest first.
+_RECORDED: List[Tuple[str, int, list, Dict[str, int]]] = []
 _NATIVE_SINK: Optional[Callable[[int, int, int], None]] = None
 
 
@@ -304,6 +507,7 @@ def reset() -> None:
     with _LOCK:
         _RAW = _WIRE = _OPS = _TRACES = 0
         _INVENTORIES.clear()
+        _RECORDED.clear()
     _STEP_PLANE[0] = -2
 
 
@@ -454,9 +658,52 @@ def instrument(fn, label: Optional[str] = None, backend: str = "inductor"):
             graphs, recorder.graphs = recorder.graphs, None
         plane = _end_trace()
         _note_plane(plane)
+        _record(name, graphs)
         if plane == "gspmd":
             note_inventory(inventory_from_graph(graphs, label=name))
         return out
 
     functools.update_wrapper(wrapper, fn)
     return wrapper
+
+
+def _record(label: str, graphs: list) -> None:
+    """Keep one first call's graphs, with the world their collectives
+    span (Horovod's, else torch.distributed's default group's, 0 when
+    neither is up) and the size of each group they name."""
+    import torch.distributed as dist
+
+    from .. import basics
+
+    world = (basics.size() if basics.is_initialized()
+             else dist.get_world_size() if dist.is_initialized() else 0)
+    groups = _group_sizes(graphs)
+    with _LOCK:
+        _RECORDED.append((label, world, list(graphs), groups))
+        del _RECORDED[:-_MAX_INVENTORIES]
+
+
+def write_graphs(directory: str, label: Optional[str] = None) -> List[str]:
+    """Write the code of every graph :func:`instrument` recorded (those of
+    ``label`` only, when given) to ``directory``, one
+    ``<label>.<n>.py`` file a graph: a header naming the label, the world
+    and the size of each group the collectives name, then
+    ``GraphModule.print_readable``'s text.  Returns the paths, in
+    recording order; :func:`inventory_from_text` reads them back."""
+    import json
+
+    with _LOCK:
+        recorded = [r for r in _RECORDED if label is None or r[0] == label]
+    os.makedirs(directory, exist_ok=True)
+    paths, n = [], 0
+    for lab, world, graphs, groups in recorded:
+        sizes = json.dumps(groups, sort_keys=True, separators=(",", ":"))
+        for gm in graphs:
+            path = os.path.join(directory, f"{lab}.{n}.py")
+            n += 1
+            header = (f"# hlo_inspect: label={lab} world={world} "
+                      f"groups={sizes}\n")
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(header + gm.print_readable(print_output=False))
+            paths.append(path)
+    return paths

@@ -269,8 +269,10 @@ def test_elastic_expected_launches(layers, steps, world, per):
 
 def _elastic_events(layers=12, resume_mode="replica", respawn_digest="d1",
                     bad_launch=None):
-    """The events of a killed elastic run as the workers write them: pids
-    10 (survivor), 11 (killed after step 1) and 12 (respawned)."""
+    """The events of a killed elastic run of 4 steps as the workers write
+    them: pids 10 (survivor), 11 (killed in step ``ELASTIC_KILL_STEP``)
+    and 12 (respawned)."""
+    kill = chip_smoke.ELASTIC_KILL_STEP
     t = [0.0]
 
     def ev(event, pid, gen, rank, **kw):
@@ -283,20 +285,23 @@ def _elastic_events(layers=12, resume_mode="replica", respawn_digest="d1",
     for pid, rank in ((10, 0), (11, 1)):
         out.append(ev("resume", pid, 0, rank, mode="cold", cut=None,
                       commits=0, step=0, own_digest=None, params="p0"))
-    for step in (0, 1):
+    for step in range(kill):
         for pid, rank in ((10, 0), (11, 1)):
             out.append(ev("step", pid, 0, rank, step=step, loss=10.0 - step,
                           launches=dict(launches), step_s=1.0, commit_s=2.0,
                           commits=step + 1, replication={
                               "commits": step + 1, "bytes": 5,
                               "seconds": 0.5},
-                          own_digest=f"d{rank}" if step else "old",
+                          own_digest=(f"d{rank}" if step == kill - 1
+                                      else "old"),
                           params=f"p{step + 1}"))
-    out.append(ev("resume", 10, 1, 0, mode=resume_mode, cut=2, commits=2,
-                  step=2, own_digest="d0", params="p2"))
-    out.append(ev("resume", 12, 1, 1, mode=resume_mode, cut=2, commits=2,
-                  step=2, own_digest=respawn_digest, params="p2"))
-    for step in (2, 3):
+    out.append(ev("resume", 10, 1, 0, mode=resume_mode, cut=kill,
+                  commits=kill, step=kill, own_digest="d0",
+                  params=f"p{kill}"))
+    out.append(ev("resume", 12, 1, 1, mode=resume_mode, cut=kill,
+                  commits=kill, step=kill,
+                  own_digest=respawn_digest, params=f"p{kill}"))
+    for step in range(kill, 4):
         for pid, rank in ((10, 0), (12, 1)):
             got = dict(launches)
             if bad_launch and step == 3 and rank == 1:
@@ -317,7 +322,8 @@ def test_check_elastic_accepts_a_faithful_recovery():
     assert rep["launches"] == {"flash_fwd": 96, "flash_bwd_dq": 96,
                                "flash_bwd_dkv": 96, "quant_int8": 0,
                                "quant_int4": 0, "dequant": 0}
-    assert rep["resume"][0] == {"mode": "replica", "cut": 2,
+    assert rep["resume"][0] == {"mode": "replica",
+                                "cut": chip_smoke.ELASTIC_KILL_STEP,
                                 "survivor": True, "digest": "d0"}
     assert rep["resume"][1]["survivor"] is False
     assert len(rep["replications"]) == 8
