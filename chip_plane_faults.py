@@ -4,10 +4,11 @@ NVIDIA card.
     python3 chip_plane_faults.py [--seed N]
 
 Builds the flash kernels and the native core as ``chip_smoke.py`` does,
-then runs that phase's two ranks (GPT_SMALL on replicated DTensor
-parameters, ``PLANE_STEPS`` compiled gspmd steps over Inductor and the
-eager replay, gloo on ``cuda:0``) once for each entry of ``FAULTS``, all
-sharing one Inductor cache:
+then runs that phase's two ranks (GPT_SMALL's width at
+``chip_smoke.PLANE_LAYERS`` blocks on replicated DTensor parameters,
+``PLANE_STEPS`` compiled gspmd steps over Inductor and the eager replay,
+gloo on ``cuda:0``) once for each entry of ``FAULTS``, all sharing one
+Inductor cache:
 
 - ``sound``: as ``chip_smoke.py`` runs them;
 - ``dup_shard``: the compiled run's rank 1 trains on rank 0's sequences, a
@@ -86,8 +87,6 @@ def fault_rank(rank, port, seed, cache, fault, queue):
 def run(seed: int, fault: str, cache: str, card: str) -> dict:
     """One pair of ranks with ``fault`` planted: its readings and whether
     the phase's checks refuse it."""
-    from horovod_tpu_torch.models import GPT_SMALL
-
     t0 = time.perf_counter()
     reports, codes = chip_smoke.RankPair(
         fault_rank, (seed, cache, fault)).collect(chip_smoke.PLANE_TIMEOUT_S)
@@ -98,7 +97,7 @@ def run(seed: int, fault: str, cache: str, card: str) -> dict:
             row[f"rank{r}"] = {"error": rep["error"][-3000:]}
             continue
         try:
-            chip_smoke.check_plane(rep, GPT_SMALL.num_layers)
+            chip_smoke.check_plane(rep, chip_smoke.PLANE_LAYERS)
             caught = None
         except AssertionError as e:
             caught, refused = str(e)[:400], True

@@ -171,7 +171,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    digest; K4-K6 launch 4 a step on each rank in both generations, the
    losses stay finite, the final parameters are bitwise equal across
    ranks and within ``ELASTIC_PARAM_TOL`` of an uninterrupted run of the
-   same worker, and a ``ShardedCheckpointer`` round trip of the
+   same worker (the two jobs run at once), and a ``ShardedCheckpointer`` round trip of the
    full-width state is bitwise.  Prints each replication's seconds and
    bytes, the seconds from the kill to generation 1's resume and first
    step, peak device memory per rank and the checkpoint's bytes and
@@ -226,19 +226,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``ElasticRayExecutor(min_np=2, max_np=2)`` over ``localhost:2``: 2
    plain steps of the same model through ``runner._exec_fn``, equal
    digests and losses, K4-K6 2 a step a rank.  World-2 parts run two ranks
-   on ``cuda:0`` over gloo; their times are not a speed result.
+   on ``cuda:0`` over gloo; their times are not a speed result.  The phase
+   runs in a spawned process of its own (``IntegrationsRun``), started
+   with the compiled plane's ranks (16) and beside them and the world-2
+   phases (6, 7, 10, 11 and 12); its lines print after the parallel
+   phase's.
 
 16. The compiler data plane (``compiled_plane``).  (a) World 1 over NCCL:
    ``DistributedOptimizer(plane="gspmd")`` counts ``demote_world1`` and
    trains ``GPT(GPT_SMALL)`` 2 steps bitwise as ``plane="eager"`` does.
-   (b) Two ranks on ``cuda:0`` over gloo (``plane_rank``): ``GPT(GPT_SMALL)``
+   (b) Two ranks on ``cuda:0`` over gloo (``plane_rank``): a GPT at
+   ``GPT_SMALL``'s full width and 4 of its 12 blocks (``PLANE_LAYERS``)
    from the seed, its parameters replicated DTensors (``distribute_module``
    on ``gspmd_plane.build_gspmd_mesh()``, a ``DeviceMesh`` over the gloo
    group on ``cuda``), 8 x 1024 tokens a step as ``Shard(0)``,
    ``DistributedOptimizer(AdamW(3e-4, fused), plane="gspmd")``, and 3
    steps of ``hlo_inspect.instrument(step)`` over Inductor, ``step``
    holding the forward, ``lm_loss``, the backward and ``opt.step()``: K4-K6
-   12 a step a rank inside the compiled step (K1-K3 none), one inventory
+   4 a step a rank inside the compiled step (K1-K3 none), one inventory
    a rank of all-reduces only, its raw bytes the fp32 parameters' and its
    wire bytes the ring model's at g = 2, ``data_plane_stats()``'s
    ``gspmd_raw`` / ``gspmd_wire`` equal to it, ``plane_counters() ==
@@ -273,8 +278,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    be ``expected_launches`` at world 4.  Prints one line a row with its
    seconds.  The rows run beside the elastic phase (13), whose lines
    print first.
+19. Benchmark tools (``bench_tools``).  (a) The microbenchmark
+   (``python -m horovod_tpu_torch.examples.microbenchmark``'s ``main``)
+   ``--plane eager --mb 16 --iters 20`` at world 1 over NCCL in this
+   process, after the eager example: every call an identity on the device
+   plane (no host fallback), every output on the card and exact.  (b) The
+   microbenchmark ``--plane eager`` and ``--plane jit`` through the port's
+   launcher at ``-np 2``, both ranks on ``cuda:0`` over gloo with
+   ``TORCHINDUCTOR_COMPILE_THREADS=1``: rank 0's line an op in the
+   reference's format.  (c) ``python -m horovod_tpu_torch.tools.
+   bench_negotiation --np 4 --steps 60 --tensors 50 --device-codec int8
+   --device-schedule bidi``, four ranks on ``cuda:0`` over gloo: the
+   cache's announce ratio under 0.5, the device codec's baseline untouched,
+   each rank's K1 8 and K3 14 in its one quantized allreduce
+   (``expected_launches`` at world 4), the encoded-to-raw ratio 0.254 and
+   the error inside the ring's bound.  (a) and (c) run after the eager
+   example with nothing beside them: the cache's announce bytes a step
+   grow with the step's idle negotiation cycles (16 bytes each), which a
+   loaded host multiplies.  (b) runs beside the fleet phase (14).  The
+   world-2 and world-4 times are not a speed result.
 
-Each phase prints its seconds.  The line before the last is
+Phase 19 runs after 17, before 8.  Each phase prints its seconds.  The
+line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3328,17 +3353,21 @@ def elastic_expected_launches(layers: int, steps: int,
             "quant_int8": 0, "quant_int4": 0, "dequant": 0}
 
 
-def run_launcher(argv, env, timeout_s, log_path):
-    """``python -m horovod_tpu_torch.runner.launch argv`` in a session of
-    its own (so a timeout kills the driver and its workers together);
-    returns (rc, stdout, stderr, seconds)."""
+def run_launcher(argv, env, timeout_s, log_path,
+                 module="horovod_tpu_torch.runner.launch", started=None):
+    """``python -m <module> argv`` (the port's launcher by default) in a
+    session of its own (so a timeout kills it and its workers together);
+    ``started`` receives the process.  Returns (rc, stdout, stderr,
+    seconds)."""
     import signal
 
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv],
+        [sys.executable, "-m", module, *argv],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
+    if started is not None:
+        started(proc)
     try:
         out, err = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -3453,8 +3482,8 @@ def elastic_phase(seed, gpu_operations) -> dict:
         script = os.path.join(tmp, "worker.py")
         with open(script, "w") as f:
             f.write(ELASTIC_WORKER.format(repo=repo))
-        runs = {}
-        for label, killed in (("killed", True), ("uninterrupted", False)):
+
+        def run(label, killed) -> dict:
             outdir = os.path.join(tmp, label)
             os.makedirs(outdir)
             spec = {"outdir": outdir, "seed": seed, "checkpoint": killed,
@@ -3506,7 +3535,17 @@ def elastic_phase(seed, gpu_operations) -> dict:
                 os.path.join(outdir, "final_params.pt"))
             rep["final_digest"] = next(e["params"] for e in events
                                        if e["event"] == "final")
-            runs[label] = rep
+            return rep
+
+        # Both runs at once: the resume's bits and the launches do not
+        # depend on the timing, and the time is not a speed result.
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            futures = {label: pool.submit(run, label, killed)
+                       for label, killed in (("killed", True),
+                                             ("uninterrupted", False))}
+        runs = {label: f.result() for label, f in futures.items()}
         a = runs["killed"].pop("final_params")
         b = runs["uninterrupted"].pop("final_params")
         err = max(float((a[n] - b[n]).abs().max()) for n in a)
@@ -4810,11 +4849,80 @@ def integrations_phase(hvd, fa, seed, gpu_operations, card="") -> dict:
     return out
 
 
+INTEGRATIONS_TIMEOUT_S = 900
+
+
+def integrations_child(seed, gpu_operations, card, queue):
+    """:func:`integrations_phase` in a spawned process of its own (its
+    environment and working-directory changes stay there); its lines,
+    captured, its result and its seconds go back through ``queue``."""
+    import contextlib
+    import io
+    import traceback
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    lines = io.StringIO()
+    try:
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import flash_attention as fa
+
+        with contextlib.redirect_stdout(lines):
+            out, secs = timed_phase(integrations_phase, hvd, fa, seed,
+                                    gpu_operations, card)
+        queue.put({"lines": lines.getvalue(), "result": out,
+                   "seconds": secs})
+    except BaseException:
+        queue.put({"lines": lines.getvalue(),
+                   "error": traceback.format_exc()})
+
+
+class IntegrationsRun:
+    """The integrations phase in a spawned process, started by the
+    constructor, so ``main`` runs the world-2 phases meanwhile (none of
+    its times is a speed result); :meth:`result` waits for it, prints its
+    lines and returns its result and seconds."""
+
+    def __init__(self, seed, gpu_operations, card):
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=integrations_child,
+                                args=(seed, gpu_operations, card,
+                                      self.results))
+        self.proc.start()
+
+    def kill(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+
+    def result(self) -> tuple:
+        import queue as queue_mod
+
+        try:
+            rep = self.results.get(timeout=INTEGRATIONS_TIMEOUT_S)
+        except queue_mod.Empty:
+            raise AssertionError(f"integrations: no result in "
+                                 f"{INTEGRATIONS_TIMEOUT_S} s") from None
+        finally:
+            self.proc.join(60)
+            self.kill()
+        print(rep["lines"], end="", flush=True)
+        if "error" in rep:
+            raise AssertionError(f"integrations failed:\n{rep['error']}")
+        return rep["result"], rep["seconds"]
+
+
 # ---------------------------------------------------------------------------
 # The compiler data plane: GPT-2 small on DTensor under torch.compile.
 # ---------------------------------------------------------------------------
 
 PLANE_STEPS = 3
+# GPT_SMALL's full width, 4 of its 12 blocks: Inductor compiles each block
+# on its own, so the compile (184-266 s a rank at 12 blocks) shrinks with
+# the depth, and it loads the host under the world-2 and elastic phases.
+PLANE_LAYERS = 4
 PLANE_BATCH = 8            # sequences a step, Shard(0): 4 a rank
 PLANE_SEQ = 1024
 PLANE_LR = 3e-4
@@ -4829,15 +4937,25 @@ PLANE_TIMEOUT_S = 900
 # where |g| is that small.  The largest element difference is reported
 # and held to nothing: Adam bounds every element's update by about lr a
 # step on any gradients, so a planted fault stays under that bound too.
-# Read with ``chip_plane_faults.py`` on an NVIDIA H100 80GB HBM3 at 700 W:
-# the sound run 0.0406, rank 1 training on rank 0's shard 0.844, the
-# embeddings stepped on unreduced gradients 0.347.  The limit lies between
-# them, about 3x from each side.  The first step's loss, the same weights
-# and tokens through both forwards, to 1e-2 relative.
-PLANE_UPDATE_READINGS = {"sound": 0.0406, "dup_shard": 0.844,
-                         "unreduced_embeddings": 0.347}
+# Read with ``chip_plane_faults.py`` on an NVIDIA H100 80GB HBM3 at 700 W
+# at 4 blocks: the sound run 0.0248, rank 1 training on rank 0's shard
+# 0.736, the embeddings stepped on unreduced gradients 0.446 (at 12
+# blocks: 0.0406, 0.844, 0.347).  The limit lies between them, at least
+# 3x from each side.  The first step's loss, the same weights and tokens
+# through both forwards, to 1e-2 relative.
+PLANE_UPDATE_READINGS = {"sound": 0.0248, "dup_shard": 0.736,
+                         "unreduced_embeddings": 0.446}
 PLANE_UPDATE_RTOL = 0.12
 PLANE_LOSS_RTOL = 1e-2
+
+
+def plane_config():
+    """The phase's model: GPT_SMALL's width at ``PLANE_LAYERS`` blocks."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import GPT_SMALL
+
+    return dataclasses.replace(GPT_SMALL, num_layers=PLANE_LAYERS)
 
 
 def plane_tokens(seed) -> torch.Tensor:
@@ -4881,14 +4999,15 @@ def plane_params(model) -> dict:
 
 
 def plane_compiled(hvd, fa, qz, seed, rank, tokens) -> tuple:
-    """GPT_SMALL's parameters replicated as DTensors on the plane's mesh,
-    the batch ``Shard(0)``, ``DistributedOptimizer(AdamW, plane="gspmd")``
-    and ``PLANE_STEPS`` steps of ``hlo_inspect.instrument(step)`` over
-    Inductor.  Returns the report and the final parameters."""
+    """The phase model's parameters replicated as DTensors on the plane's
+    mesh, the batch ``Shard(0)``, ``DistributedOptimizer(AdamW,
+    plane="gspmd")`` and ``PLANE_STEPS`` steps of
+    ``hlo_inspect.instrument(step)`` over Inductor.  Returns the report and
+    the final parameters."""
     from torch.distributed.tensor import DTensor, Shard, distribute_module
 
     from horovod_tpu_torch.context import HorovodContext
-    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.models import GPT, lm_loss
     from horovod_tpu_torch.ops import gspmd_plane as gp
     from horovod_tpu_torch.ops import hlo_inspect as hi
 
@@ -4898,7 +5017,7 @@ def plane_compiled(hvd, fa, qz, seed, rank, tokens) -> tuple:
     core = HorovodContext.instance().core
     before_stats = core.data_plane_stats()
     torch.manual_seed(seed)
-    model = GPT(GPT_SMALL).to(dev)
+    model = GPT(plane_config()).to(dev)
     mesh = gp.build_gspmd_mesh()
     distribute_module(model, mesh)
     opt = hvd.DistributedOptimizer(
@@ -5024,11 +5143,11 @@ def compile_stages() -> dict:
 def plane_eager(hvd, seed, rank, tokens) -> tuple:
     """The same steps on the eager plane: plain tensors, the hooks,
     ``plane="eager"``, each rank its half of every batch."""
-    from horovod_tpu_torch.models import GPT, GPT_SMALL, lm_loss
+    from horovod_tpu_torch.models import GPT, lm_loss
 
     dev = hvd.device()
     torch.manual_seed(seed)
-    model = GPT(GPT_SMALL).to(dev)
+    model = GPT(plane_config()).to(dev)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=PLANE_LR, fused=True),
         named_parameters=model.named_parameters(), plane="eager")
@@ -5065,13 +5184,13 @@ def plane_compare(compiled, eager, init) -> dict:
 def plane_work(rank, seed) -> dict:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.context import HorovodContext
-    from horovod_tpu_torch.models import GPT, GPT_SMALL
+    from horovod_tpu_torch.models import GPT
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import quantize as qz
 
     tokens = plane_tokens(seed)
     torch.manual_seed(seed)
-    init = plane_params(GPT(GPT_SMALL))
+    init = plane_params(GPT(plane_config()))
     hvd.init(device="cuda:0")
     try:
         if HorovodContext.instance().core.name != "native":
@@ -5208,8 +5327,6 @@ class CompiledPlane:
     def result(self) -> tuple:
         import shutil
 
-        from horovod_tpu_torch.models import GPT_SMALL
-
         try:
             reports, codes = self.pair.collect(PLANE_TIMEOUT_S)
         finally:
@@ -5221,7 +5338,7 @@ class CompiledPlane:
         if codes != [0, 0]:
             raise AssertionError(f"compiled-plane exit codes {codes}")
         for rep in reports.values():
-            check_plane(rep, GPT_SMALL.num_layers)
+            check_plane(rep, PLANE_LAYERS)
         check_plane_report(reports[0])
         if reports[0]["params_digest"] != reports[1]["params_digest"]:
             raise AssertionError("the ranks' compiled parameters differ")
@@ -5253,7 +5370,8 @@ def print_plane(plane, secs, gpu_operations, card, beside) -> None:
                       **plane["world1"]}), flush=True)
     for rep in plane["ranks"]:
         print(json.dumps({"phase": "compiled_plane", "part": "world2",
-                          "model": "GPT_SMALL", "batch": PLANE_BATCH,
+                          "model": "GPT_SMALL", "layers": PLANE_LAYERS,
+                          "batch": PLANE_BATCH,
                           "seq": PLANE_SEQ, "steps": PLANE_STEPS,
                           "gpu_operations": gpu_operations,
                           "tolerances": {"loss_rtol": PLANE_LOSS_RTOL,
@@ -5281,6 +5399,233 @@ def eager_example_phase() -> dict:
                              "not finite")
     return {"steps": ex.STEPS, "device_plane": stats,
             "params_device": str(params[0].device)}
+
+
+# The bench_tools phase: the port's benchmark tools through their entry
+# points.
+BENCH_MB = 16                   # the microbenchmark's defaults
+BENCH_ITERS = 20
+MICRO_OPS = ("allreduce", "allgather", "alltoall", "reducescatter",
+             "broadcast")
+BENCH_NP = 4
+BENCH_CODEC = "int8"
+BENCH_SCHEDULE = "bidi"
+BENCH_DEVICE_MB = 4.0           # bench_negotiation's --device-mb default
+BENCH_ARGS = ["--np", str(BENCH_NP), "--steps", "60", "--tensors", "50",
+              "--device-codec", BENCH_CODEC, "--device-schedule",
+              BENCH_SCHEDULE]
+BENCH_TIMEOUT_S = 600
+# The reference's encoded-to-raw ratios (docs/benchmarks.md): a property
+# of each codec, so the card must read the same to three decimals.
+CODEC_RATIOS = {"int8": 0.254, "int4": 0.129, "int8g": 0.251}
+# The cache's bar on the announce bytes (tests/parallel/
+# test_negotiation_cache.py: under half without the cache).
+ANNOUNCE_RATIO_BAR = 0.5
+
+
+def bench_codec_ratio(codec, schedule, world=BENCH_NP,
+                      mb=BENCH_DEVICE_MB) -> float:
+    """The device codec's encoded-to-raw ratio in one quantized allreduce
+    of the section's per-rank tensor, padded as the device plane pads
+    it."""
+    from horovod_tpu_torch.ops import quantize as qz
+    from horovod_tpu_torch.ops.device_plane import bucket_len
+
+    per_rank = (int(mb * (1 << 20)) // 4) // world
+    raw, enc = qz.ring_bytes(bucket_len(per_rank), world, codec, schedule)
+    return round(enc / raw, 3)
+
+
+def micro_lines(text: str) -> dict:
+    """The microbenchmark's lines, ``{op: (MiB/s, plane, size)}``, from
+    its output (the launcher's rank prefix allowed)."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"^(?:\[\d+\]<stdout>: ?)?(\w+) +([0-9.]+) MiB/s "
+                         r"\((\w+) plane, size=(\d+)\)$", text, re.M):
+        out[m.group(1)] = (float(m.group(2)), m.group(3), int(m.group(4)))
+    return out
+
+
+def bench_env() -> dict:
+    """The environment of the tools' jobs of more ranks than cards: every
+    rank on ``cuda:0`` over gloo, one Inductor compile thread a rank."""
+    env = dict(os.environ)
+    env.update(HOROVOD_GPU_OPERATIONS="GLOO", HOROVOD_CUDA_DEVICE="0",
+               TORCHINDUCTOR_COMPILE_THREADS="1",
+               HOROVOD_GLOO_TIMEOUT_SECONDS="300",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
+               + os.pathsep + env.get("PYTHONPATH", ""))
+    return env
+
+
+def micro_world1() -> dict:
+    """(a) The microbenchmark's eager plane at world 1 over NCCL, in this
+    process: every op an identity on the device plane, no host fallback,
+    every output on the card and exact."""
+    from horovod_tpu_torch.examples import microbenchmark as mb
+
+    out = mb.main(["--plane", "eager", "--mb", str(BENCH_MB), "--iters",
+                   str(BENCH_ITERS)])
+    stats = out["device_plane"]
+    calls = len(MICRO_OPS) * (BENCH_ITERS + 1)
+    if stats["host_fallback"] or stats["identity"] != calls:
+        raise AssertionError(f"microbenchmark world 1: device plane {stats}, "
+                             f"expected {calls} identities")
+    for op, t in out["outputs"].items():
+        if not (t.is_cuda and bool((t == 1).all())):
+            raise AssertionError(f"microbenchmark world 1: {op} output on "
+                                 f"{t.device}, not all ones")
+    return {"mib_per_s": out["mib_per_s"], "device_plane": stats,
+            "outputs_device": sorted({str(t.device)
+                                      for t in out["outputs"].values()})}
+
+
+def micro_world2(plane, tmpdir, started=None) -> dict:
+    """(b) The microbenchmark at ``-np 2`` through the port's launcher,
+    both ranks on ``cuda:0`` over gloo: rank 0 prints one line an op."""
+    rc, out, err, secs = run_launcher(
+        ["-np", "2", sys.executable, "-m",
+         "horovod_tpu_torch.examples.microbenchmark", "--plane", plane,
+         "--mb", str(BENCH_MB), "--iters", str(BENCH_ITERS)],
+        bench_env(), BENCH_TIMEOUT_S,
+        os.path.join(tmpdir, f"micro_{plane}.log"), started=started)
+    lines = micro_lines(out)
+    want = MICRO_OPS if plane == "eager" else MICRO_OPS[:4]
+    if rc != 0 or sorted(lines) != sorted(want) or any(
+            (p, s) != (plane, 2) for _, p, s in lines.values()):
+        raise AssertionError(f"microbenchmark -np 2 --plane {plane}: exit "
+                             f"{rc}, lines {lines}\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    return {"mib_per_s": {op: v[0] for op, v in lines.items()},
+            "seconds": round(secs, 3)}
+
+
+def check_bench_negotiation(lines: list, world: int = BENCH_NP) -> dict:
+    """The negotiation tool's lines: three configurations and the cache's
+    summary under its bar; the device codec's baseline untouched, each
+    rank's K1-K3 launches in its one call the ring's, its ratio the
+    codec's and its error inside the ring's bound."""
+    by = {ln.get("config") or ln.get("metric"): ln for ln in lines}
+    for name in ("cache_on", "cache_off", "fusion_off"):
+        if name not in by:
+            raise AssertionError(f"bench_negotiation: no {name} line")
+    summary = by["negotiation_cache_speedup"]
+    if not summary["announce_bytes_ratio_on_vs_off"] < ANNOUNCE_RATIO_BAR:
+        raise AssertionError(f"bench_negotiation: announce ratio {summary}")
+    base = by["device_none"]
+    comp = by[f"device_{BENCH_CODEC}_{BENCH_SCHEDULE}"]
+    idle = {"quant_int8": 0, "quant_int4": 0, "dequant": 0}
+    if base["device_raw_bytes_per_step"] or \
+            base["launches"] != [idle] * world:
+        raise AssertionError(f"bench_negotiation: baseline {base}")
+    want = [expected_launches("allreduce", BENCH_CODEC, BENCH_SCHEDULE, r,
+                              world=world) for r in range(world)]
+    if comp["launches"] != want:
+        raise AssertionError(f"bench_negotiation: K1-K3 launches "
+                             f"{comp['launches']}, expected {want}")
+    codec = by["device_codec"]
+    ratio = bench_codec_ratio(BENCH_CODEC, BENCH_SCHEDULE, world)
+    if not (codec["device_encoded_vs_raw_ratio"] == ratio
+            == CODEC_RATIOS[BENCH_CODEC]):
+        raise AssertionError(f"bench_negotiation: ratio {codec}, analytic "
+                             f"{ratio}")
+    if not codec["max_abs_err"] <= codec["max_abs_err_bound"]:
+        raise AssertionError(f"bench_negotiation: error {codec}")
+    if not all(ln.get("shared_card") for ln in lines):
+        raise AssertionError("bench_negotiation: a line of a job on the one "
+                             "card does not say so")
+    return {"lines": lines, "launches": comp["launches"]}
+
+
+def bench_negotiation(tmpdir) -> dict:
+    """(c) ``bench_negotiation`` through its command line, alone on the
+    host: its lines, checked."""
+    rc, out, err, secs = run_launcher(
+        BENCH_ARGS, bench_env(), BENCH_TIMEOUT_S,
+        os.path.join(tmpdir, "bench_negotiation.log"),
+        module="horovod_tpu_torch.tools.bench_negotiation")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if rc != 0:
+        raise AssertionError(f"bench_negotiation exit {rc}:\n{out[-3000:]}"
+                             f"\n{err[-3000:]}")
+    try:
+        res = check_bench_negotiation(lines)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\nlines: {json.dumps(lines)}") from None
+    res["seconds"] = round(secs, 3)
+    return res
+
+
+def bench_tools_phase() -> dict:
+    """(a), then (c), with nothing beside them: the cache's announce bytes
+    a step grow with the step's idle negotiation cycles, which a loaded
+    host multiplies."""
+    import shutil
+    import tempfile
+
+    world1, secs = timed_phase(micro_world1)
+    world1["seconds"] = secs
+    tmpdir = tempfile.mkdtemp(prefix="hvd_bench_")
+    try:
+        negotiation = bench_negotiation(tmpdir)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return {"micro_world1": world1, "negotiation": negotiation}
+
+
+class MicroWorld2:
+    """(b), both planes one after the other, in a thread started by the
+    constructor, so ``main`` runs another phase meanwhile; :meth:`result`
+    waits for them."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.tmp = tempfile.mkdtemp(prefix="hvd_micro_")
+        self.proc, self.killed, self.out = None, False, {}
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _started(self, proc):
+        self.proc = proc
+        if self.killed:
+            self.kill()
+
+    def _run(self):
+        try:
+            for plane in ("eager", "jit"):
+                if self.killed:
+                    return
+                self.out[plane] = micro_world2(plane, self.tmp,
+                                               started=self._started)
+        except BaseException as e:  # re-raised by result()
+            self.out["error"] = e
+
+    def kill(self):
+        import signal
+
+        self.killed = True
+        if self.proc is not None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+    def result(self) -> dict:
+        import shutil
+
+        self.thread.join(2 * BENCH_TIMEOUT_S + 60)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        if self.thread.is_alive():
+            self.kill()
+            raise AssertionError("the microbenchmark's -np 2 runs did not "
+                                 "end in time")
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out
 
 
 # The kill callables of the phases ``main`` left running in the background
@@ -5505,6 +5850,20 @@ def main() -> int:
     print(json.dumps({"phase": "eager_example", "model": "MLP",
                       "world": 1, "card": card, "seconds": secs, **eager}),
           flush=True)
+    bench, secs = timed_phase(bench_tools_phase)
+    neg = bench["negotiation"]
+    print(json.dumps({"phase": "bench_tools", "part": "microbenchmark",
+                      "world": 1, "mb": BENCH_MB, "iters": BENCH_ITERS,
+                      "card": card, **bench["micro_world1"]}), flush=True)
+    print(json.dumps({"phase": "bench_tools", "part": "bench_negotiation",
+                      "args": BENCH_ARGS, "seconds": neg["seconds"],
+                      "launches": neg["launches"], "card": card}),
+          flush=True)
+    for line in neg["lines"]:
+        print(json.dumps({"phase": "bench_tools", "part": "bench_negotiation",
+                          **line}), flush=True)
+    print(json.dumps({"phase": "bench_tools", "part": "alone",
+                      "seconds": secs}), flush=True)
 
     torch.cuda.empty_cache()
     cnn, secs = timed_phase(cnn_phase, hvd, fa, qz, args.seed)
@@ -5546,6 +5905,10 @@ def main() -> int:
     # world-2 phases and the elastic jobs run, none of them a speed result.
     compiled = CompiledPlane(hvd, args.seed, gpu_operations)
     _BACKGROUND.append(compiled.pair.kill)
+    # The integrations (Spark, Ray: host work) run beside the world-2
+    # phases too.
+    integrations = IntegrationsRun(args.seed, gpu_operations, card)
+    _BACKGROUND.append(integrations.kill)
     (rank0, rank1), secs = timed_phase(world2_phase, args.seed,
                                        gpu_operations)
     for rep in (rank0, rank1):
@@ -5553,7 +5916,7 @@ def main() -> int:
                           "batch_per_rank": 4, "seq": 1024,
                           "note": "two ranks share one card: step times "
                                   "are not a speed result",
-                          "beside": "compiled_plane",
+                          "beside": "compiled_plane, integrations",
                           "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
     (spine0, spine1_rank, replayed), secs = timed_phase(
@@ -5566,7 +5929,7 @@ def main() -> int:
                           "replayed_bucket_elems": replayed,
                           "note": "two ranks share one card: step times "
                                   "are not a speed result",
-                          "beside": "compiled_plane",
+                          "beside": "compiled_plane, integrations",
                           "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
     (extras0, extras1), secs = timed_phase(spine_extras_phase, args.seed,
@@ -5580,7 +5943,7 @@ def main() -> int:
                           "gpu_operations": gpu_operations,
                           "note": "two ranks share one card: times are not "
                                   "a speed result",
-                          "beside": "compiled_plane",
+                          "beside": "compiled_plane, integrations",
                           "card": card, "seconds": secs, **rep}), flush=True)
     torch.cuda.empty_cache()
     cnn2, secs = timed_phase(cnn_world2_phase, args.seed, gpu_operations)
@@ -5589,7 +5952,7 @@ def main() -> int:
                       "gpu_operations": gpu_operations,
                       "note": "two ranks share one card over gloo staged "
                               "through the host: step times are not a "
-                              "speed result", "beside": "compiled_plane",
+                              "speed result", "beside": "compiled_plane, integrations",
                       "card": card, "seconds": secs, **cnn2}), flush=True)
     torch.cuda.empty_cache()
     par, secs = timed_phase(parallel_phase, args.seed, gpu_operations)
@@ -5605,11 +5968,16 @@ def main() -> int:
                           "note": "two ranks share one card over gloo "
                                   "staged through the host: times are not "
                                   "a speed result",
-                          "beside": "compiled_plane",
+                          "beside": "compiled_plane, integrations",
                           "card": card, "seconds": secs, **rep}),
               flush=True)
     print(json.dumps({"phase": "parallel", "part": "replay",
                       "card": card, **par["replay"]}), flush=True)
+    integ, secs = integrations.result()
+    print(json.dumps({"phase": "integrations", "part": "total",
+                      "seconds": secs, "parts": integ["seconds"],
+                      "beside": "the world-2 phases and compiled_plane"}),
+          flush=True)
     torch.cuda.empty_cache()
     # The matrix's rows run beside the elastic jobs; they count their
     # launches in their own processes.
@@ -5627,9 +5995,9 @@ def main() -> int:
                           "gpu_operations": gpu_operations,
                           "note": "two ranks share one card over gloo "
                                   "staged through the host, beside the "
-                                  "compiled-plane phase's ranks and the "
-                                  "matrix's rows: times are not a speed "
-                                  "result",
+                                  "other elastic job, the compiled-plane "
+                                  "phase's ranks and the matrix's rows: "
+                                  "times are not a speed result",
                           "card": card, **run}), flush=True)
     print(json.dumps({"phase": "elastic", "part": "compare", "card": card,
                       "seconds": secs,
@@ -5650,6 +6018,10 @@ def main() -> int:
     print_plane(plane, plane_secs, gpu_operations, card,
                 ", beside the world-2, elastic and matrix phases' ranks")
     torch.cuda.empty_cache()
+    # The microbenchmark's two ranks run beside the fleet's three: no time
+    # of either is a speed result, and the fleet waits out its windows.
+    micro = MicroWorld2()
+    _BACKGROUND.append(micro.kill)
     fleet, secs = timed_phase(fleet_phase, args.seed, gpu_operations)
     print(json.dumps({"phase": "fleet", "model": "GPT_SMALL",
                       "world": FLEET_WORLD, "hosts": FLEET_HOSTS,
@@ -5662,12 +6034,14 @@ def main() -> int:
                               "result",
                       "card": card, "phase_seconds": secs, **fleet}),
           flush=True)
-    torch.cuda.empty_cache()
-    integ, secs = timed_phase(integrations_phase, hvd, fa, args.seed,
-                              gpu_operations, card)
-    print(json.dumps({"phase": "integrations", "part": "total",
-                      "seconds": secs, "parts": integ["seconds"]}),
-          flush=True)
+    for micro_plane, run in micro.result().items():
+        print(json.dumps({"phase": "bench_tools", "part": "microbenchmark",
+                          "world": 2, "plane": micro_plane, "mb": BENCH_MB,
+                          "iters": BENCH_ITERS, "gpu_operations": "GLOO",
+                          "note": "two ranks share one card over gloo "
+                                  "staged through the host, beside the "
+                                  "fleet phase's ranks: not a speed result",
+                          "card": card, **run}), flush=True)
     elastic_launches = ela["runs"]["killed"]["launches"]
     ef = rank0["ef_trainer"]
     trainer = spine0["trainer"]["launches"]
@@ -5741,7 +6115,9 @@ def main() -> int:
                                                                name),
             "launches_matrix": {row: [rank[name] for rank in ranks]
                                 for row, ranks in
-                                matrix["launches"].items()}})
+                                matrix["launches"].items()},
+            "launches_bench_negotiation": [rank[name] for rank in
+                                           neg["launches"]]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2401,11 +2401,16 @@ std::string SocketController::BuildCycleFrame(
   // costs no extra round trips.  v10 extends it: marker 2 carries the
   // same 7 metric i64s (zeros when the registry is off) followed by this
   // rank's last completed step snapshot (step id + kStepPhases phase
-  // sums), feeding the coordinator's fleet attribution.
+  // sums), feeding the coordinator's fleet attribution.  Each snapshot
+  // travels once: the coordinator keeps the first report of a (step,
+  // rank) and drops repeats, so a cycle with no newer step sends the
+  // 4-byte empty marker (metrics off) instead of repeating 116 bytes.
   int64_t st_sid = 0;
   int64_t st_phases[kStepPhases];
-  const bool has_step =
-      StepTraceOn() && StepTraceLastCompleted(&st_sid, st_phases);
+  const bool has_step = StepTraceOn() &&
+                        StepTraceLastCompleted(&st_sid, st_phases) &&
+                        st_sid != step_sent_;
+  if (has_step) step_sent_ = st_sid;
   if (MetricsOn() || has_step) {
     w.PutI32(has_step ? 2 : 1);
     if (MetricsOn()) {

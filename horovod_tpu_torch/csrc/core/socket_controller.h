@@ -426,6 +426,9 @@ class SocketController : public Controller {
   // at most once per interval; in-between frames carry an empty section.
   double fleet_last_encode_ = 0;
   double fleet_leader_last_encode_ = 0;
+  // Background thread: the step id of the last step snapshot this rank's
+  // cycle frames carried (BuildCycleFrame sends each one once).
+  int64_t step_sent_ = -1;
   // Coordinator-side fleet tick limiter (the sum is cheap but per-cycle
   // would still be 1000x more often than the 1 Hz history wants).
   double last_fleet_tick_ = 0;

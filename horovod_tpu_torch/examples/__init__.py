@@ -16,7 +16,10 @@
   its ``main(argv)`` calls ``hvd.init(device=--device)`` itself;
 - ``spark_estimator``: ``TorchEstimator.fit`` on a pandas DataFrame with
   the local backend (the torch half of ``examples/spark_estimator.py``);
-  the estimator's worker calls ``hvd.init(device=--device)`` itself.
+  the estimator's worker calls ``hvd.init(device=--device)`` itself;
+- ``microbenchmark``: MiB/s of each collective on the negotiated spine or
+  compiled as functional collectives (``examples/jax_microbenchmark.py``);
+  its ``main(argv)`` calls ``hvd.init(device=--device)`` itself.
 
 Each is a ``main(argv)`` that runs on ``hvd.device()``: the card, unless
 the caller ran ``hvd.init(device="cpu")`` first.  It returns what it

@@ -136,6 +136,32 @@ def ring_bytes(count: int, world: int, codec: str = "int8",
     return (hops * chunk * 4, hops * encoded_nbytes(chunk, codec))
 
 
+def ring_error_bound(codec: str, world: int, max_abs: float,
+                     schedule: str = "ring") -> float:
+    """Bound on the error of one quantized ring Sum over ``world`` ranks
+    whose inputs are at most ``max_abs`` in magnitude, under a resolved
+    ``schedule``.  Each encode of a partial of k inputs adds at most half
+    its block's scale, max|block| / qmax, where max|block| <= k * max_abs
+    plus the error the partial carries; int8g's sub-scale rounding adds
+    max|group| / 512 an encode, as a qmax of 84 does.  A torus reduces
+    along its minor axis, then along its major axis over the minor sums;
+    the gathered sum is encoded once more."""
+    qm = {"int8": 127.0, "int4": 7.0, "int8g": 84.0}[codec]
+
+    def chain(e_in, n, unit):
+        # n partials of at most `unit` each, each carrying e_in.
+        e = e_in
+        for k in range(1, n):
+            e += (k * unit + e) / (2 * qm) + e_in
+        return e
+
+    a, b = 1, int(world)
+    if schedule == "torus" and torus_factors(world) is not None:
+        a, b = torus_factors(world)
+    total = chain(chain(0.0, b, max_abs), a, b * max_abs)
+    return total + (world * max_abs + total) / (2 * qm)
+
+
 # --- Device-plane byte counters ------------------------------------------
 
 _DEV_LOCK = threading.Lock()

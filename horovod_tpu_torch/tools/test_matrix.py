@@ -254,29 +254,12 @@ WORKLOAD = textwrap.dedent("""
 
             qcodec = qdev.split(":", 1)[0]
             assert qraw > 0 and qenc < qraw, (qraw, qenc)
-            # The ring's bound: each encode of a partial of k inputs adds
-            # at most half its block's scale, max|block| / qmax, where
-            # max|block| <= k * max|x| plus the error the partial carries;
-            # int8g's sub-scale rounding adds max|group| / 512 an encode,
-            # as a qmax of 84 does.  The sum's error over s is the
-            # average's.
-            qm = {"int8": 127.0, "int4": 7.0, "int8g": 84.0}[qcodec]
+            # The ring's bound on the sum (quantize.ring_error_bound);
+            # the sum's error over s is the average's.
             big_x = float(np.abs(qx).max())
-
-            def chain(e_in, n, unit):
-                # n partials of at most `unit` each, each carrying e_in.
-                e = e_in
-                for k in range(1, n):
-                    e += (k * unit + e) / (2 * qm) + e_in
-                return e
-
-            a, b = 1, s
-            if resolve_device_schedule(s) == "torus" and \\
-                    qz.torus_factors(s) is not None:
-                a, b = qz.torus_factors(s)
-            qsum = chain(chain(0.0, b, big_x), a, b * big_x)
-            qsum += (s * big_x + qsum) / (2 * qm)
-            qbound = qsum / s + 1e-6 * big_x
+            qbound = qz.ring_error_bound(qcodec, s, big_x,
+                                         resolve_device_schedule(s)) / s \\
+                + 1e-6 * big_x
             qerr = float(np.max(np.abs(qout - qmean)))
             report["qdev_err"] = [qerr, qbound]
             assert qerr <= qbound, (qcodec, qerr, qbound)

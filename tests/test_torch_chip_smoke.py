@@ -745,3 +745,81 @@ def test_planted_duplicate_shard_gives_rank1_rank0s_sequences(monkeypatch):
     assert torch.equal(args[5][:, :per], tokens[:, :per])
     with pytest.raises(ValueError, match="unknown fault"):
         chip_plane_faults.plant("no_such_fault")
+
+
+# ---------------------------------------------------------------------------
+# The bench_tools phase
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("schedule,quant,deq", [("bidi", 8, 14),
+                                                ("ring", 4, 7)])
+@pytest.mark.parametrize("codec", ["int8", "int4", "int8g"])
+def test_bench_launches_at_world_4(schedule, quant, deq, codec):
+    """One quantized allreduce at world 4: world encodes and 2*world-1
+    decodes a ring, bidi two rings, on every rank."""
+    key = "quant_int4" if codec == "int4" else "quant_int8"
+    for rank in range(chip_smoke.BENCH_NP):
+        got = chip_smoke.expected_launches("allreduce", codec, schedule,
+                                           rank, world=chip_smoke.BENCH_NP)
+        assert got[key] == quant and got["dequant"] == deq
+        assert sum(got.values()) == quant + deq
+
+
+@pytest.mark.parametrize("schedule", ["ring", "bidi", "torus"])
+@pytest.mark.parametrize("codec", ["int8", "int4", "int8g"])
+def test_bench_codec_ratio_is_the_references(schedule, codec):
+    """The phase's encoded-to-raw ratio at 4 MiB over 4 ranks: the
+    reference's recorded ratio on every schedule (torus at 4 is 2 x 2)."""
+    assert chip_smoke.bench_codec_ratio(codec, schedule) == \
+        chip_smoke.CODEC_RATIOS[codec]
+
+
+def test_micro_lines_reads_the_launchers_rank_prefix():
+    text = ("[0]<stdout>: allreduce           123.4 MiB/s (jit plane, "
+            "size=2)\n[0]<stderr>: warning\n"
+            "broadcast             7.0 MiB/s (eager plane, size=1)\n"
+            "[1]<stdout>: other line\n")
+    assert chip_smoke.micro_lines(text) == {
+        "allreduce": (123.4, "jit", 2), "broadcast": (7.0, "eager", 1)}
+
+
+def _bench_lines():
+    idle = {"quant_int8": 0, "quant_int4": 0, "dequant": 0}
+    want = [chip_smoke.expected_launches("allreduce", "int8", "bidi", r,
+                                         world=4) for r in range(4)]
+    return [
+        {"config": "cache_on", "shared_card": True},
+        {"config": "cache_off", "shared_card": True},
+        {"config": "fusion_off", "shared_card": True},
+        {"metric": "negotiation_cache_speedup",
+         "announce_bytes_ratio_on_vs_off": 0.27, "shared_card": True},
+        {"config": "device_none", "device_raw_bytes_per_step": 0,
+         "launches": [idle] * 4, "shared_card": True},
+        {"config": "device_int8_bidi", "launches": want,
+         "shared_card": True},
+        {"metric": "device_codec", "device_encoded_vs_raw_ratio": 0.254,
+         "max_abs_err": 0.01, "max_abs_err_bound": 0.02,
+         "shared_card": True}]
+
+
+def test_check_bench_negotiation_accepts_a_faithful_run():
+    out = chip_smoke.check_bench_negotiation(_bench_lines())
+    assert out["launches"][0] == {"quant_int8": 8, "quant_int4": 0,
+                                  "dequant": 14}
+
+
+@pytest.mark.parametrize("index,key,value,match", [
+    (3, "announce_bytes_ratio_on_vs_off", 0.6, "announce ratio"),
+    (4, "device_raw_bytes_per_step", 96, "baseline"),
+    (5, "launches", [{"quant_int8": 8, "quant_int4": 0, "dequant": 13}] * 4,
+     "K1-K3 launches"),
+    (6, "device_encoded_vs_raw_ratio", 0.129, "ratio"),
+    (6, "max_abs_err", 0.03, "error"),
+    (0, "shared_card", False, "does not say so"),
+])
+def test_check_bench_negotiation_refuses_a_wrong_run(index, key, value,
+                                                     match):
+    lines = _bench_lines()
+    lines[index][key] = value
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_bench_negotiation(lines)

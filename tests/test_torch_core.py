@@ -5,6 +5,8 @@ and its ctypes declarations.
 sources of ``horovod_tpu/cpp/`` (the 13 ``SRCS`` of its Makefile and every
 header they include).  The reference is frozen, so the copy is pinned to
 it: a later change to the port's C++ changes this test and says why.
+``DIVERGENCES`` holds those changes, each as the reference's text and the
+port's; every other byte is the reference's.
 """
 
 import ast
@@ -44,9 +46,48 @@ SRCS = _makefile_srcs()
 FILES = SRCS + _included_headers(SRCS)
 
 
+# A worker's cycle frame carries each step snapshot once: the coordinator
+# keeps the first report of a (step, rank) and drops repeats, and the
+# reference's repeat on every idle cycle (116 bytes) outweighed the
+# response cache's saving on a slow step (the negotiation benchmark's
+# announce ratio on one card).
+DIVERGENCES = {
+    "socket_controller.cc": [(
+        """  // sums), feeding the coordinator's fleet attribution.
+  int64_t st_sid = 0;
+  int64_t st_phases[kStepPhases];
+  const bool has_step =
+      StepTraceOn() && StepTraceLastCompleted(&st_sid, st_phases);
+""",
+        """  // sums), feeding the coordinator's fleet attribution.  Each snapshot
+  // travels once: the coordinator keeps the first report of a (step,
+  // rank) and drops repeats, so a cycle with no newer step sends the
+  // 4-byte empty marker (metrics off) instead of repeating 116 bytes.
+  int64_t st_sid = 0;
+  int64_t st_phases[kStepPhases];
+  const bool has_step = StepTraceOn() &&
+                        StepTraceLastCompleted(&st_sid, st_phases) &&
+                        st_sid != step_sent_;
+  if (has_step) step_sent_ = st_sid;
+""")],
+    "socket_controller.h": [(
+        """  double fleet_leader_last_encode_ = 0;
+""",
+        """  double fleet_leader_last_encode_ = 0;
+  // Background thread: the step id of the last step snapshot this rank's
+  // cycle frames carried (BuildCycleFrame sends each one once).
+  int64_t step_sent_ = -1;
+""")],
+}
+
+
 @pytest.mark.parametrize("name", FILES)
 def test_core_copy_is_the_reference_source(name):
-    assert (CORE_DIR / name).read_bytes() == (REF_DIR / name).read_bytes()
+    want = (REF_DIR / name).read_bytes()
+    for ref, port in DIVERGENCES.get(name, ()):
+        assert want.count(ref.encode()) == 1, (name, ref)
+        want = want.replace(ref.encode(), port.encode())
+    assert (CORE_DIR / name).read_bytes() == want
 
 
 def test_core_copy_holds_the_library_and_nothing_else():

@@ -1,8 +1,8 @@
 """The port stands alone: ``horovod_tpu_torch`` (``parallel``, the runner
 with its autopilot and GPU discovery, ``elastic``, ``checkpoint``,
 ``callbacks``, ``data``, ``cockpit``, ``spark``, ``ray``, the compiler
-data plane's ``ops.gspmd_plane`` and ``ops.hlo_inspect`` and the
-``tools`` included) and
+data plane's ``ops.gspmd_plane`` and ``ops.hlo_inspect``, the ``tools``
+and the benchmark tools included) and
 ``chip_smoke.py`` import neither jax nor the JAX package ``horovod_tpu``
 (nor need pyspark, ray, pyarrow or cloudpickle), ``hvd.init()`` starts the
 port's own native core and builds the global mesh, it runs on the card
@@ -105,7 +105,8 @@ def test_imports_with_jax_and_reference_blocked():
                    "ops.hlo_inspect", "examples.uneven_data_join",
                    "tools", "tools.test_matrix", "tools.hlo_report",
                    "examples.eager_device_plane", "examples.torch_mnist",
-                   "examples.torch_elastic_mnist"):
+                   "examples.torch_elastic_mnist", "examples.microbenchmark",
+                   "tools.bench_negotiation"):
         assert f"'horovod_tpu_torch.{module}'" in names
 
 
